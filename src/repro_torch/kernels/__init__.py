@@ -1,0 +1,17 @@
+"""Hand-written Hopper kernels for the workload's hot spots.
+
+Each kernel package ships kernel.py (the launcher of the CUDA source in
+``csrc/`` and its launch count), ops.py (the public wrapper) and ref.py (the
+plain PyTorch oracle the tests hold both against).  The CUDA sources are
+compiled by :mod:`repro_torch.kernels.build` at first launch, never at
+import, so this package imports on a machine without ``nvcc``.
+"""
+from repro_torch.kernels.diffusion_conv.ops import diffusion_conv
+from repro_torch.kernels.diffusion_conv.ref import diffusion_conv_ref
+from repro_torch.kernels.window_gather.ops import gather_xy, window_gather
+from repro_torch.kernels.window_gather.ref import window_gather_ref
+
+__all__ = [
+    "diffusion_conv", "diffusion_conv_ref",
+    "window_gather", "window_gather_ref", "gather_xy",
+]

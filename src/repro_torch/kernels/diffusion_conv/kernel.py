@@ -1,0 +1,84 @@
+"""Launcher of the hand-written CUDA hop kernel (``csrc/hop_project.cu``).
+
+Replaces the Pallas TPU kernel ``hop_project`` of the JAX package
+(``repro/kernels/diffusion_conv/kernel.py``): one diffusion hop fused with
+its projection,
+
+    Z_k = S @ Z_{k-1}            S [N, N], Z [N, B, C]
+    Y  += Z_k @ W_k              W_k [C, H], Y [N, B, H]
+
+:func:`hop_project_plain` is its plain PyTorch version: a CPU tensor takes
+it, a CUDA tensor launches the kernel or raises.  The kernel has no
+backward.  ``hop_project.launches`` counts the kernel's launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.build import library
+from repro_torch.kernels.common import kernel_defaults
+
+#: Widest feature dim C the kernel's register tile covers.
+MAX_C = 128
+
+
+def hop_project_plain(s, z, w, y):
+    """(Z_next, Y_next) = (S @ Z, Y + (S @ Z) @ W) with plain einsums."""
+    z_next = torch.einsum("mn,nbc->mbc", s, z)
+    return z_next, y + torch.einsum("nbc,ch->nbh", z_next, w)
+
+
+def _entry():
+    lib = library("hop_project")
+    fn = lib.hop_project_f32
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.hop_project_error.argtypes = [ctypes.c_int]
+        lib.hop_project_error.restype = ctypes.c_char_p
+    return lib, fn
+
+
+def hop_project(s, z, w, y):
+    """One fused hop.  s: [N, N], z: [N, B, C], w: [C, H], y: [N, B, H].
+
+    Returns ``(z_next, y_next)``.
+    """
+    kd = kernel_defaults(z.device)
+    if not kd.kernel:
+        return hop_project_plain(s, z, w, y)
+    n, b, c = z.shape
+    h = w.shape[1]
+    expect = {"s": (n, n), "w": (c, h), "y": (n, b, h)}
+    for name, t in (("s", s), ("z", z), ("w", w), ("y", y)):
+        if t.dtype != torch.float32 or t.device != z.device or not t.is_contiguous():
+            raise ValueError(f"hop_project: {name} must be contiguous float32 on "
+                             f"{z.device}, got {t.dtype} on {t.device}")
+        if name in expect and tuple(t.shape) != expect[name]:
+            raise ValueError(f"hop_project: {name} has shape {tuple(t.shape)}, "
+                             f"expected {expect[name]}")
+    if not 0 < c <= MAX_C:
+        raise ValueError(f"hop_project: feature dim C={c} outside [1, {MAX_C}]")
+    if any(t.requires_grad for t in (s, z, w, y)) and torch.is_grad_enabled():
+        raise NotImplementedError(
+            "hop_project has no backward kernel; differentiate the plain "
+            "version (use_pallas=False)")
+    z_out = torch.empty_like(z)
+    y_out = torch.empty_like(y)
+    if z.numel() == 0:
+        return z_out, y_out
+    lib, fn = _entry()
+    with torch.cuda.device(z.device):
+        err = fn(s.data_ptr(), z.data_ptr(), w.data_ptr(), y.data_ptr(),
+                 z_out.data_ptr(), y_out.data_ptr(), n, b, c, h,
+                 torch.cuda.current_stream(z.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"hop_project launch failed: "
+                           f"{lib.hop_project_error(err).decode()} ({err})")
+    hop_project.launches += 1
+    return z_out, y_out
+
+
+hop_project.launches = 0

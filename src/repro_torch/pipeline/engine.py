@@ -1,0 +1,159 @@
+"""Engine — the execution half of the pipeline: the train step with the
+window gather fused in, ``fit`` and ``evaluate``.
+
+The engine owns what the :class:`~repro_torch.pipeline.dataplane.DataPlane`
+does not: the step that gathers (x, y) from the resident series and runs
+loss, gradients and AdamW, and the evaluation over the val/test feeds.
+Checkpointing, elastic restarts and prefetch arrive with later slices of the
+port and raise here when asked for.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.core.index_dataset import IndexDataset
+from repro_torch.core.windows import WindowSpec
+from repro_torch.pipeline.dataplane import DataPlane, PipelineConfig, build_dataplane
+from repro_torch.pipeline.gathers import resolve_gather
+from repro_torch.train.loop import (combine_weighted, init_train_state,
+                                    make_train_step, run_training)
+from repro_torch.tree import tree_map
+
+
+@dataclasses.dataclass
+class Engine:
+    """Train step + evaluation over a DataPlane."""
+
+    dataplane: DataPlane
+    init_params: Any
+    train_step: Callable
+    _eval_loss: Callable  # (params, starts) -> (loss, metrics)
+
+    @property
+    def config(self) -> PipelineConfig:
+        return self.dataplane.config
+
+    @property
+    def dataset(self) -> IndexDataset:
+        return self.dataplane.dataset
+
+    @property
+    def world(self) -> int:
+        return self.dataplane.world
+
+    @property
+    def steps_per_epoch(self) -> int:
+        return self.dataplane.steps_per_epoch
+
+    @property
+    def global_batch(self) -> int:
+        return self.dataplane.global_batch
+
+    def describe(self) -> dict:
+        return self.dataplane.describe()
+
+    def batch_of_starts(self, window_ids: np.ndarray) -> torch.Tensor:
+        return self.dataplane.batch_of_starts(window_ids)
+
+    # --------------------------------------------------------------- training
+    def fit(
+        self,
+        *,
+        epochs: int | None = None,
+        eval_fn: Callable[[Any], dict] | None | str = "auto",
+    ) -> tuple[Any, list[dict]]:
+        """Train from ``init_params`` (copied; the caller's tensors are left
+        as they were).  Returns ``(state, history)`` like ``run_training``.
+        ``eval_fn="auto"`` evaluates val-split MAE at every epoch end."""
+        loop = self.config.loop
+        if epochs is not None:
+            loop = dataclasses.replace(loop, epochs=epochs)
+        params = tree_map(lambda p: p.detach().clone(), self.init_params)
+        state = init_train_state(params, self.config.adam)
+        if eval_fn == "auto":
+            eval_fn = (lambda st: {"val_mae": self.evaluate(st["params"])}) \
+                if len(self.dataset.val_windows) > 0 else None
+        return run_training(state=state, train_step=self.train_step,
+                            sampler=self.dataplane,
+                            batch_of_starts=self.dataplane.batch_of_starts,
+                            loop=loop, eval_fn=eval_fn)
+
+    # ------------------------------------------------------------- evaluation
+    @torch.no_grad()
+    def evaluate(self, params, *, split: str = "val", max_batches: int = 4) -> float:
+        """Window-weighted mean loss over up to ``max_batches`` eval chunks.
+
+        Full chunks are the pool's global batches in pool order; the ragged
+        tail is scored once as a small batch when the budget was not already
+        spent on full chunks, so small splits are never silently truncated.
+        Per-chunk ``(loss, windows)`` pairs combine through
+        :func:`repro_torch.train.loop.combine_weighted`.
+        """
+        dp = self.dataplane
+        if len(dp.eval_pool(split)) == 0:
+            return float("nan")
+        rows, tail = dp.eval_grid(split)
+        pairs = []
+        for i in range(min(rows.shape[0], max_batches)):
+            loss, _ = self._eval_loss(params, dp.batch_of_starts(rows[i]))
+            pairs.append((float(loss), self.global_batch))
+        if len(tail) and rows.shape[0] < max_batches:
+            tail_len, tail_batch = dp.eval_tail_batch(split)
+            loss, _ = self._eval_loss(params, tail_batch)
+            pairs.append((float(loss), tail_len))
+        return combine_weighted(pairs)
+
+
+def _compile(dataplane: DataPlane, loss_fn: Callable, config: PipelineConfig):
+    """(train_step, batch_loss) with the window gather fused over THIS data
+    plane's resident series."""
+    gather = resolve_gather(config.gather)
+    spec = dataplane.spec
+    series = dataplane.dataset.series
+
+    def batch_loss(params, starts):
+        x, y = gather(series, starts, input_len=spec.in_len, horizon=spec.horizon)
+        return loss_fn(params, x, y)
+
+    schedule = config.schedule or (lambda s: config.adam.lr)
+    loop = config.loop
+    train_step = make_train_step(batch_loss, config.adam, schedule,
+                                 microbatches=loop.microbatches,
+                                 grad_dtype=loop.grad_dtype)
+    return train_step, batch_loss
+
+
+def build_engine(
+    raw: np.ndarray | None,
+    spec: WindowSpec,
+    loss_fn: Callable[[Any, torch.Tensor, torch.Tensor], tuple[torch.Tensor, dict]],
+    init_params: Any,
+    config: PipelineConfig = PipelineConfig(),
+    *,
+    dataset: IndexDataset | None = None,
+    elastic: Any = None,
+) -> Engine:
+    """Assemble the single-device trainer (DataPlane + Engine).
+
+    ``loss_fn(params, x, y) -> (loss, metrics)`` is the only model-specific
+    piece; the engine supplies (x, y) by fusing the selected window gather
+    into the step.  Pass ``dataset=`` to reuse an already-built
+    ``IndexDataset``.
+    """
+    later = {"elastic": (elastic is not None, "the elastic/distributed slice"),
+             "loop.ckpt_dir": (bool(config.loop.ckpt_dir),
+                               "the checkpointing slice"),
+             "loop.prefetch_depth": (config.loop.prefetch_depth > 0,
+                                     "the prefetch slice")}
+    for name, (asked, where) in later.items():
+        if asked:
+            raise NotImplementedError(
+                f"{name} is not ported yet; it arrives with {where}")
+    dataplane = build_dataplane(raw, spec, config, dataset=dataset)
+    train_step, eval_loss = _compile(dataplane, loss_fn, config)
+    return Engine(dataplane=dataplane, init_params=init_params,
+                  train_step=train_step, _eval_loss=eval_loss)

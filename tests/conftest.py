@@ -199,3 +199,9 @@ def mh_spawn(repo_root):
             p.wait()
     for f in logs:
         f.close()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (hand-written CUDA kernels); "
+                   "skipped without one")
