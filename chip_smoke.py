@@ -1,34 +1,45 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's ST-GNN main path through its user entry points at the full
-width of the registered ``pgt-dcrnn-pems-all-la`` arch (2,716 nodes, 2 input
-features, hidden 64, K = 2 hops over 2 supports, 12 in / 12 out):
+Drives the port's two main paths through their user entry points, each at
+the full width of a registered arch, with every kernel count set to 0 just
+before a path and read just after it:
 
-1. device: card name and power limit; TF32 off for matmuls and cuDNN;
-2. build: compiles the hand-written CUDA kernels from ``src/repro_torch``;
-3. kernels: each kernel against its plain PyTorch version at the shapes the
-   main path gives it (window_gather bit-exact, hop_project within fp32
-   tolerance), plus the gather's edge cases;
-4. train: ``build_pipeline(..., gather="pallas").fit()`` for 20 steps of 32
-   windows, the gather running through the CUDA kernel;
-5. forecast: ``evaluate(split="test")`` with ``use_pallas=True`` (every hop
-   through the CUDA hop kernel), held against the plain evaluation;
-6. times: train step and forecast batch (CUDA events, medians, host
-   overhead included) and each kernel's device time (the stream held busy
-   while the host enqueues), beside its bound from the H100 datasheet and a
-   one-call PyTorch yardstick.
+- the ST-GNN path at ``pgt-dcrnn-pems-all-la`` width (2,716 nodes, 2 input
+  features, hidden 64, K = 2 hops over 2 supports, 12 in / 12 out):
+  ``build_pipeline(..., gather="pallas").fit()`` for 20 steps of 32 windows
+  (the gather through the CUDA ``window_gather``), then
+  ``evaluate(split="test")`` with ``use_pallas=True`` (every hop through the
+  CUDA ``hop_project``), held against the plain evaluation;
+- the serving path at ``recurrentgemma-2b`` width (26 layers as
+  8 x (rec, rec, swa) + (rec, rec), d_model 2,560, 10 heads, 1 kv head,
+  head_dim 256, d_ff 7,680, vocab 256,000, lru_width 2,560, window 2,048,
+  bf16 compute, f32 params; 3.55 B parameters, random from a seed):
+  ``ServeEngine(..., ServeConfig(slots=8, max_len=1024, max_new_tokens=32))``
+  serves 16 greedy requests with ``use_pallas_scan=True``, every RG-LRU scan
+  through the CUDA ``linear_scan`` (18 launches per prefill group and per
+  decode step); one prefill group is run again through the plain scan.
 
-The one cut: the synthetic series has 8,640 entries (30 days of 5-minute
-bins) instead of PeMS-All-LA's 105,120; and the train split is cut to the
-20 steps' 640 windows.  Weights are random, from a seed.
+Phases: device (card name and power limit; TF32 off for matmuls and cuDNN);
+build (the CUDA kernels compiled from ``src/repro_torch``, one nvcc per
+source in parallel); kernels (each kernel against its plain PyTorch version
+at the shapes its path gives it: window_gather and linear_scan bit-exact,
+hop_project within fp32 tolerance, plus edge cases); the two paths; times
+(CUDA events, medians; each kernel's device time beside its bound from the
+H100 datasheet, its plain version and a one-call PyTorch yardstick where one
+exists).
+
+Cuts: the ST-GNN series has 8,640 entries (30 days of 5-minute bins)
+instead of PeMS-All-LA's 105,120, and the train split is cut to the 20
+steps' 640 windows.  The serving cell cuts traffic only (16 requests, prompt
+lengths drawn from 128, 256 and 512 tokens); no width or depth is cut.
 
 Prints the kernels' JSON line, then ``{"ok": true, "device": {...}}`` as the
 last line; exits non-zero on any failure, and without a card.
 
 Run from the repository root:  python3 chip_smoke.py [--profile]
-(``--profile`` adds a torch.profiler breakdown of one train step and one
-forecast batch.)
+(``--profile`` adds a torch.profiler breakdown of one train step, one
+forecast batch and one decode step.)
 """
 from __future__ import annotations
 
@@ -57,6 +68,16 @@ BATCH, TRAIN_STEPS, SEED = 32, 20, 0
 HOP_RTOL = HOP_ATOL = 1e-4  # fp32, sums of 2,716 terms in another order
 EVAL_RTOL = 1e-4            # MAE through the hop kernel vs the plain hops
 SLEEP_CYCLES = 20_000_000   # ~10 ms of device clock: covers the host's enqueueing
+
+RG_ARCH = "recurrentgemma-2b"
+RG_SLOTS, RG_MAX_LEN, RG_NEW_TOKENS = 8, 1024, 32
+RG_REQUESTS, RG_PROMPT_LENS = 16, (128, 256, 512)  # the traffic cuts
+RG_AGREE_STEPS = 8  # greedy decode steps compared between the two scans
+# Logits of one prefill group through the scan kernel vs the plain scan.  The
+# kernel is bit-exact to its plain version and every other op is the same,
+# so the two should agree exactly; the bound allows a few bf16 ulps at the
+# logits' magnitude in case a library op is not deterministic.
+RG_LOGIT_ATOL = 0.125
 
 
 def check(ok: bool, what: str) -> None:
@@ -401,17 +422,243 @@ def phase_profile(pipe, fpipe, state) -> None:
         log(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=12))
 
 
+# --------------------------------------------------------- the serving path
+def rg_model():
+    """recurrentgemma-2b at its registered widths, random f32 params drawn
+    on the card from a seeded generator."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.lm import model as lm
+    from repro_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(get_arch(RG_ARCH).lm, use_pallas_scan=True)
+    t0 = time.perf_counter()
+    params = lm.init(torch.Generator(device="cuda").manual_seed(SEED), cfg,
+                     device="cuda")
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in tree_leaves(params))
+    log(f"serve: {RG_ARCH} at full width: {cfg.layers} layers "
+        f"({[(len(sp), r) for sp, r in lm.stage_plan(cfg)]} stage plan), "
+        f"d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} x "
+        f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, lru_width "
+        f"{cfg.lru_width}, window {cfg.window}, compute {cfg.dtype}, params "
+        f"{cfg.param_dtype}: {n:,} parameters ({n * 4 / 1e9:.2f} GB f32), "
+        f"random from seed {SEED}, drawn in {time.perf_counter() - t0:.1f} s")
+    return cfg, params
+
+
+def rg_prompts():
+    rng = np.random.default_rng(SEED)
+    lens = rng.choice(RG_PROMPT_LENS, size=RG_REQUESTS)
+    return [rng.integers(0, 256_000, int(n)).astype(np.int32) for n in lens]
+
+
+def phase_serve(cfg, params):
+    """The serving main path: 16 greedy requests through ServeEngine."""
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    prompts = rg_prompts()
+    log(f"serve: CUTS (traffic only): {RG_REQUESTS} requests, prompt lengths "
+        f"{sorted(p.size for p in prompts)} drawn from {RG_PROMPT_LENS}, "
+        f"{RG_NEW_TOKENS} new tokens each; no width or depth cut")
+    eng = ServeEngine(params, cfg, ServeConfig(slots=RG_SLOTS, max_len=RG_MAX_LEN,
+                                               max_new_tokens=RG_NEW_TOKENS),
+                      planes=1)
+    plane = eng.planes[0]
+    log(f"serve: slot-pool cache {plane.cache_bytes() / 2**20:.1f} MiB "
+        f"({RG_SLOTS} lanes x {RG_MAX_LEN} tokens)")
+    groups, steps = [], []
+    prefill_into, decode = plane.prefill_into, plane.decode
+
+    def timed_prefill(slots, batch, **kw):
+        t0 = time.perf_counter()
+        out = prefill_into(slots, batch, **kw)  # ends in its one device pull
+        groups.append((batch.shape, (time.perf_counter() - t0) * 1e3))
+        return out
+
+    def timed_decode():
+        t0 = time.perf_counter()
+        out = decode()  # ends in its one device pull
+        steps.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    plane.prefill_into, plane.decode = timed_prefill, timed_decode
+    rids = [eng.submit(p) for p in prompts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.run()
+    wall = time.perf_counter() - t0
+    plane.prefill_into, plane.decode = prefill_into, decode
+    statuses = [eng.router.done[r].status for r in rids]
+    n_tok = sum(len(out[r]) for r in rids)
+    log(f"serve: {len(rids)} requests in {wall:.3f} s: {len(groups)} prefill "
+        f"groups {[tuple(g) for g, _ in groups]}, {len(steps)} decode steps, "
+        f"{n_tok} tokens ({n_tok / wall:.1f} tokens/s over the run)")
+    check(statuses == ["ok"] * RG_REQUESTS, f"request statuses {statuses}")
+    check(all(len(out[r]) == RG_NEW_TOKENS for r in rids),
+          "a request did not get its 32 tokens")
+    check(all(0 <= t < cfg.vocab for r in rids for t in out[r]),
+          "a token outside the vocabulary")
+    return eng, out, groups, steps, wall, n_tok
+
+
+def rg_compare_plain(cfg, eng, groups) -> None:
+    """One prefill group again, through the scan kernel and through the
+    plain scan, on the same (compute-dtype) params; then a short greedy
+    decode from each."""
+    from repro_torch.models.lm import model as lm
+
+    params = eng.planes[0].params
+    prompts = rg_prompts()
+    (k, plen), _ = groups[0]
+    batch = torch.as_tensor(np.stack([p for p in prompts if p.size == plen][:k]),
+                            dtype=torch.long, device="cuda")
+    runs = {}
+    with torch.no_grad():
+        for use in (True, False):
+            c = dataclasses.replace(cfg, use_pallas_scan=use)
+            cache = lm.init_cache(c, k, RG_MAX_LEN)
+            logits, cache, lengths = lm.prefill(params, c, batch, cache)
+            toks, tok = [], torch.argmax(logits, -1)[:, None]
+            for _ in range(RG_AGREE_STEPS):
+                toks.append(tok[:, 0].cpu())
+                step_logits, cache = lm.decode_step(params, c, tok, cache, lengths)
+                check(bool(torch.isfinite(step_logits).all()), "non-finite decode logits")
+                tok, lengths = torch.argmax(step_logits, -1)[:, None], lengths + 1
+            runs[use] = (logits.float(), torch.stack(toks))
+    err = float((runs[True][0] - runs[False][0]).abs().max())
+    agree = float((runs[True][1] == runs[False][1]).float().mean())
+    log(f"serve: prefill group [{k}, {plen}] logits through linear_scan vs the "
+        f"plain scan: max_abs_diff {err:.3e} (atol {RG_LOGIT_ATOL}); greedy "
+        f"tokens agreeing over {RG_AGREE_STEPS} decode steps: {agree:.3f}")
+    check(bool(torch.isfinite(runs[True][0]).all()), "non-finite prefill logits")
+    check(err <= RG_LOGIT_ATOL, "prefill logits through linear_scan disagree "
+                                "with the plain scan")
+
+
+def scan_inputs(gen, b, s, d, dtype=torch.float32, decay=None):
+    a = (torch.full((b, s, d), decay, device="cuda") if decay is not None else
+         0.7 + 0.3 * torch.rand((b, s, d), device="cuda", generator=gen))
+    x = torch.randn((b, s, d), device="cuda", generator=gen)
+    return a.to(dtype).contiguous(), x.to(dtype)
+
+
+def phase_scan_kernel(cfg, groups) -> float:
+    """linear_scan against its plain version, bit-exact, at the path's shapes
+    and edge cases.  Returns the max abs error (0 when bit-exact)."""
+    from repro_torch.kernels.linear_scan.kernel import linear_scan
+    from repro_torch.kernels.linear_scan.ref import linear_scan_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    w = cfg.lru_width
+    cases = [("decode, bf16 h0", (RG_SLOTS, 1, w), torch.float32, torch.bfloat16, None),
+             ("decode", (RG_SLOTS, 1, w), torch.float32, torch.float32, None)]
+    cases += [("prefill group", (k, plen, w), torch.float32, torch.float32, None)
+              for (k, plen) in sorted({g for g, _ in groups})]
+    cases += [("bf16 a and b", (4, 100, w), torch.bfloat16, torch.bfloat16, None),
+              ("D = 33, ragged S", (3, 37, 33), torch.float32, None, None),
+              ("S = 1, no h0", (2, 1, w), torch.bfloat16, None, None),
+              ("decay 0", (5, 64, 129), torch.float32, torch.float32, 0.0),
+              ("decay 1", (5, 64, 129), torch.float32, torch.float32, 1.0)]
+    worst = 0.0
+    for label, (b, s, d), dtype, h_dtype, decay in cases:
+        a, x = scan_inputs(gen, b, s, d, dtype, decay)
+        h0 = None if h_dtype is None else torch.randn(
+            (b, d), device="cuda", generator=gen).to(h_dtype)
+        got = linear_scan(a, x, h0)
+        torch.cuda.synchronize()
+        want = linear_scan_ref(a, x, h0)
+        exact = all(torch.equal(g, e) for g, e in zip(got, want))
+        worst = max(worst, max(float((g.float() - e.float()).abs().max())
+                               for g, e in zip(got, want)))
+        log(f"linear_scan {label} [{b}, {s}, {d}] {dtype} h0 {h_dtype}: "
+            f"{'bit-exact' if exact else 'DIFFERS'}")
+        check(exact, f"linear_scan {label} differs from its plain version")
+    return worst
+
+
+def scan_bound_ms(b, s, d, itemsize=4) -> float:
+    """a and b read, h_seq written, h0 read and h_last written, once each."""
+    return (3 * b * s * d + 2 * b * d) * itemsize / PEAK_BYTES_PER_S * 1e3
+
+
+def phase_serve_times(cfg, eng, groups, steps, wall, n_tok, launches, err) -> dict:
+    from repro_torch.kernels.linear_scan.kernel import linear_scan
+    from repro_torch.kernels.linear_scan.ref import linear_scan_ref
+    from repro_torch.models.lm import model as lm
+
+    params = eng.planes[0].params
+    per_len = {}
+    with torch.no_grad():
+        for (k, plen) in sorted({g for g, _ in groups}):
+            tokens = torch.randint(0, cfg.vocab, (k, plen), device="cuda")
+            cache = lm.init_cache(cfg, k, RG_MAX_LEN)
+            per_len[(k, plen)] = median_ms(
+                lambda: lm.prefill(params, cfg, tokens, cache), reps=3)
+    for (k, plen), ms in per_len.items():
+        log(f"time: prefill group [{k}, {plen}]: {ms:.3f} ms (CUDA events, "
+            f"median of 3)")
+    dec = statistics.median(steps)
+    log(f"time: decode step (8 lanes, host clock to the token pull, median of "
+        f"{len(steps)} in the run): {dec:.3f} ms; tokens/s over the run "
+        f"{n_tok / wall:.1f}; peak device memory of the serving phase "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # linear_scan at each shape of the path, weighted by its launches there
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    w = cfg.lru_width
+    shapes = {(RG_SLOTS, 1, w): len(steps)}
+    for (k, plen), _ in groups:
+        shapes[(k, plen, w)] = shapes.get((k, plen, w), 0) + 1
+    rows = []
+    for (b, s, d), n in shapes.items():
+        a, x = scan_inputs(gen, b, s, d)
+        h0 = torch.randn((b, d), device="cuda", generator=gen)
+        ms = median_ms(lambda: linear_scan(a, x, h0), inner=20, device_only=True)
+        plain = median_ms(lambda: linear_scan_ref(a, x, h0), inner=2 if s > 1 else 20,
+                          device_only=True)
+        bound = scan_bound_ms(b, s, d)
+        rows.append((n * 18, ms, plain, bound))
+        log(f"time: linear_scan [{b}, {s}, {d}] f32: {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, bound {bound:.5f} ms (bytes; "
+            f"{(3 * b * s * d + 2 * b * d) * 4 / ms / 1e6:.1f} GB/s)"
+            f"{'; launch-bound at this size' if s == 1 else ''}; "
+            f"{n * 18} launches on the path")
+    total = sum(r[0] for r in rows)
+
+    def weighted(i):
+        return sum(r[0] * r[i] for r in rows) / total
+
+    return {"name": "linear_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/linear_scan.cu",
+            "replaces": "src/repro/kernels/linear_scan/kernel.py:54",
+            "launches": launches, "max_abs_err": err,
+            "ms": weighted(1), "plain_ms": weighted(2), "bound_ms": weighted(3),
+            "bound_by": "bytes", "library_ms": None}
+
+
+def profile_decode(eng) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    plane = eng.planes[0]
+    plane.decode()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        plane.decode()
+    log("profile: decode step")
+    log(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=15))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
                         help="add a torch.profiler breakdown of one train "
-                             "step and one forecast batch")
+                             "step, one forecast batch and one decode step")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA card",
               file=sys.stderr)
         return 1
     from repro_torch.kernels.diffusion_conv.kernel import hop_project
+    from repro_torch.kernels.linear_scan.kernel import linear_scan
     from repro_torch.kernels.window_gather.kernel import window_gather
 
     t_start = time.perf_counter()
@@ -421,16 +668,16 @@ def main() -> int:
     errs = phase_kernels(supports)
     raw = make_data(adj)
 
-    # The main path: counts from 0, train then forecast, counts read after.
+    # The ST-GNN path: counts from 0, train then forecast, counts read after.
     window_gather.launches = 0
     hop_project.launches = 0
     cfg, spec, pipe, state = phase_train(raw, supports)
     fpipe, mae = phase_forecast(cfg, spec, pipe, state, supports)
     launches = {"window_gather": window_gather.launches,
                 "hop_project": hop_project.launches}
-    log(f"main path launches: {launches}")
+    log(f"ST-GNN path launches: {launches}")
     for k, v in launches.items():
-        check(v > 0, f"{k} was not launched on the main path")
+        check(v > 0, f"{k} was not launched on the ST-GNN path")
 
     compare_forecast(pipe, state, mae)
     kernels = phase_times(pipe, fpipe, state, supports, errs)
@@ -438,8 +685,32 @@ def main() -> int:
         k["launches"] = launches[k["name"]]
     if args.profile:
         phase_profile(pipe, fpipe, state)
-    log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-        f"total {time.perf_counter() - t_start:.1f} s")
+    log(f"peak device memory of the ST-GNN phases "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del pipe, fpipe, state
+
+    # The serving path: linear_scan's count from 0, the run, the count read.
+    torch.cuda.reset_peak_memory_stats()
+    rg_cfg, rg_params = rg_model()
+    n_rec = sum(kind == "rec" for kind in rg_cfg.block_types())
+    linear_scan.launches = 0
+    eng, out, groups, steps, wall, n_tok = phase_serve(rg_cfg, rg_params)
+    scan_launches = linear_scan.launches
+    expected = n_rec * (len(groups) + len(steps))
+    log(f"serving path launches: linear_scan {scan_launches} ({n_rec} RG-LRU "
+        f"layers x ({len(groups)} prefill groups + {len(steps)} decode steps) "
+        f"= {expected} expected)")
+    check(n_rec == 18, f"{n_rec} recurrent layers, expected 18")
+    check(scan_launches == expected, "linear_scan launches do not match 18 per "
+                                     "prefill group and per decode step")
+    del rg_params  # the engine keeps its compute-dtype copy
+    rg_compare_plain(rg_cfg, eng, groups)
+    scan_err = phase_scan_kernel(rg_cfg, groups)
+    kernels.append(phase_serve_times(rg_cfg, eng, groups, steps, wall, n_tok,
+                                     scan_launches, scan_err))
+    if args.profile:
+        profile_decode(eng)
+    log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -2,9 +2,9 @@
 
 Torch cannot replay ``jax.random`` draws, so parity runs hand the reference's
 own parameters over: ``params_from_jax(jax.device_get(tree))`` turns a pytree
-of numpy arrays (nested dicts) into the port's nested dict of tensors, with
-the same keys and shapes.  Nothing here imports JAX; the caller does the
-``device_get``.
+of numpy arrays (nested dicts and lists) into the port's tree of tensors, with
+the same keys, list order and shapes.  Nothing here imports JAX; the caller
+does the ``device_get``.
 """
 from __future__ import annotations
 
@@ -19,7 +19,8 @@ from repro_torch.tree import tree_map
 
 def params_from_jax(tree: Any, *, device: str | torch.device = "cuda",
                     dtype: torch.dtype | None = torch.float32) -> Any:
-    """Nested dict of array-likes -> nested dict of tensors on ``device``.
+    """Nested dicts and lists of array-likes -> the same tree of tensors on
+    ``device``.
 
     ``dtype=None`` keeps each leaf's own dtype.
     """

@@ -8,10 +8,13 @@ import, so this package imports on a machine without ``nvcc``.
 """
 from repro_torch.kernels.diffusion_conv.ops import diffusion_conv
 from repro_torch.kernels.diffusion_conv.ref import diffusion_conv_ref
+from repro_torch.kernels.linear_scan.ops import linear_scan
+from repro_torch.kernels.linear_scan.ref import linear_scan_ref
 from repro_torch.kernels.window_gather.ops import gather_xy, window_gather
 from repro_torch.kernels.window_gather.ref import window_gather_ref
 
 __all__ = [
     "diffusion_conv", "diffusion_conv_ref",
+    "linear_scan", "linear_scan_ref",
     "window_gather", "window_gather_ref", "gather_xy",
 ]

@@ -19,6 +19,9 @@ class KernelDefaults:
     ``gather_threads``  threads per block of ``window_gather``: one block per
                         output row, each thread moving 16-byte vectors when
                         the row allows it.
+    ``scan_threads``    threads per block of ``linear_scan``: one thread per
+                        (batch, channel); 128 spreads the RG-LRU's 8 x 2,560
+                        channels over 160 blocks, more than the 132 SMs.
 
     ``hop_project``'s tile (64 node rows per block of 256 threads) is fixed
     in its source.
@@ -26,6 +29,7 @@ class KernelDefaults:
 
     kernel: bool
     gather_threads: int = 256
+    scan_threads: int = 128
 
 
 _DEFAULTS = {

@@ -1,0 +1,144 @@
+"""Attention variants: GQA/MQA full attention, blockwise (flash-style) online
+softmax for long sequences, banded attention for sliding-window (SWA/local),
+and single-step decode against a KV cache.
+
+KV heads are never materialised ``G×``: scores are computed grouped
+([B, Hkv, G, Sq, Skv]), so MQA reads each KV element once.  Scores and the
+softmax are float32; the probabilities are cast to ``v``'s dtype before the
+PV product, as in the JAX package.  The JAX ``lax.map``/``lax.scan`` over
+chunks are Python loops here.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _grouped(q, n_kv):
+    b, s, h, d = q.shape
+    return q.reshape(b, s, n_kv, h // n_kv, d)
+
+
+def full_attention(q, k, v, *, causal: bool = True, window: int | None = None,
+                   q_offset: int = 0, kv_valid_from: int = 0):
+    """q: [B, Sq, H, D], k/v: [B, Skv, Hkv, D] -> [B, Sq, H, D].
+
+    ``q_offset``: position of q[0] relative to k[0] (decode / banded chunks).
+    ``kv_valid_from``: keys below this index are masked (padding).
+    Materialises the [Sq, Skv] score matrix; :func:`blockwise_attention`
+    is for long sequences.
+    """
+    b, sq, h, d = q.shape
+    n_kv = k.shape[2]
+    qg = _grouped(q, n_kv)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) / math.sqrt(d)
+    qpos = q_offset + torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(k.shape[1], device=q.device)[None, :]
+    mask = kpos >= kv_valid_from
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype), v)
+    return out.reshape(b, sq, h, d)
+
+
+def blockwise_attention(q, k, v, *, causal: bool = True, window: int | None = None,
+                        q_chunk: int = 512, kv_chunk: int = 512):
+    """Flash-style online-softmax attention over [q_chunk, kv_chunk] blocks:
+    the peak live score block is [qc, kc], never [Sq, Skv].  Inference only
+    (the JAX version's ``jax.checkpoint`` is for its backward)."""
+    b, s, h, d = q.shape
+    n_kv = k.shape[2]
+    skv = k.shape[1]
+    if s % q_chunk or skv % kv_chunk:
+        raise ValueError(f"blockwise_attention needs q_chunk | S and kv_chunk | "
+                         f"Skv: S={s}, q_chunk={q_chunk}, Skv={skv}, "
+                         f"kv_chunk={kv_chunk}")
+    nq, nk = s // q_chunk, skv // kv_chunk
+    g = h // n_kv
+    scale = 1.0 / math.sqrt(d)
+    dev = q.device
+    outs = []
+    for qi in range(nq):
+        qg = _grouped(q[:, qi * q_chunk:(qi + 1) * q_chunk], n_kv).float()
+        qpos = qi * q_chunk + torch.arange(q_chunk, device=dev)[:, None]
+        m = torch.full((b, q_chunk, n_kv, g), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((b, q_chunk, n_kv, g), dtype=torch.float32, device=dev)
+        acc = torch.zeros((b, q_chunk, n_kv, g, d), dtype=torch.float32, device=dev)
+        for ki in range(nk):
+            k_blk = k[:, ki * kv_chunk:(ki + 1) * kv_chunk]
+            v_blk = v[:, ki * kv_chunk:(ki + 1) * kv_chunk]
+            s_blk = torch.einsum("bqhgd,bkhd->bqhgk", qg, k_blk.float()) * scale
+            kpos = ki * kv_chunk + torch.arange(kv_chunk, device=dev)[None, :]
+            mask = torch.ones((q_chunk, kv_chunk), dtype=torch.bool, device=dev)
+            if causal:
+                mask = mask & (kpos <= qpos)
+            if window is not None:
+                mask = mask & (kpos > qpos - window)
+            mask5 = mask[None, :, None, None, :]
+            s_blk = torch.where(mask5, s_blk, NEG_INF)
+            m_new = torch.maximum(m, torch.amax(s_blk, dim=-1))
+            # exp(NEG_INF - NEG_INF) would be 1 for fully-masked rows: zero them.
+            p = torch.where(mask5, torch.exp(s_blk - m_new[..., None]), 0.0)
+            corr = torch.exp(m - m_new)
+            l = l * corr + torch.sum(p, dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bqhgk,bkhd->bqhgd", p, v_blk.float())
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(out.reshape(b, q_chunk, h, d).to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def banded_attention(q, k, v, *, window: int, q_chunk: int = 512):
+    """Sliding-window attention with O(S · window) work: each q chunk sees
+    only the ``window + q_chunk`` keys that end at its last position.
+
+    Needs ``q_chunk | S``, as the JAX version asserts.
+    """
+    b, s, h, d = q.shape
+    if s % q_chunk:
+        raise ValueError(f"banded_attention needs the sequence length to be a "
+                         f"multiple of q_chunk: S={s}, q_chunk={q_chunk}")
+    nq = s // q_chunk
+    band = window + q_chunk  # worst-case KV extent one q chunk can see
+    pad = (0, 0, 0, 0, band, 0)
+    kp = torch.nn.functional.pad(k, pad)
+    vp = torch.nn.functional.pad(v, pad)
+    outs = []
+    for qi in range(nq):
+        qc = q[:, qi * q_chunk:(qi + 1) * q_chunk]
+        # Band ends at the chunk's last position; padded coords shift by +band.
+        start = qi * q_chunk + q_chunk
+        kc = kp[:, start:start + band]
+        vc = vp[:, start:start + band]
+        # entries with absolute position < 0 are left-padding -> mask them
+        valid_from = band - q_chunk * (qi + 1)
+        outs.append(full_attention(qc, kc, vc, causal=True, window=window,
+                                   q_offset=band - q_chunk,
+                                   kv_valid_from=valid_from))
+    return torch.cat(outs, dim=1)
+
+
+def decode_attention(q1, k_cache, v_cache, length, *, window: int | None = None):
+    """One-token decode.  q1: [B, 1, H, D]; caches: [B, S_max, Hkv, D];
+    ``length``: [B] tensor (or int) of valid cache entries per lane."""
+    b, _, h, d = q1.shape
+    n_kv = k_cache.shape[2]
+    qg = _grouped(q1, n_kv)[:, 0]  # [B, Hkv, G, D]
+    scores = torch.einsum("bhgd,bkhd->bhgk", qg.float(), k_cache.float()) / math.sqrt(d)
+    kpos = torch.arange(k_cache.shape[1], device=q1.device)[None, :]
+    length = torch.as_tensor(length, device=q1.device).reshape(-1, 1)
+    mask = kpos < length
+    if window is not None:
+        mask = mask & (kpos >= length - window)
+    scores = torch.where(mask[:, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgk,bkhd->bhgd", probs.to(v_cache.dtype), v_cache)
+    return out.reshape(b, 1, h, d)

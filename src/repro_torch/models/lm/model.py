@@ -1,0 +1,390 @@
+"""LM backbone assembly: stage-planned block stacks.
+
+Layers are grouped into *stages*, maximal runs of a repeating block pattern,
+and each stage's parameters stack over a leading ``repeats`` dim, exactly as
+the JAX package lays them out; its ``lax.scan`` over repeats is a Python
+loop here that indexes the stacked parameters and caches.
+
+Block spec = (mixer, ffn).  This slice ports mixer ∈ full | swa | rec with
+the dense ffn: recurrentgemma = [("rec","dense"),("rec","dense"),
+("swa","dense")]×8 + 2 rec.  MLA, MoE and RWKV raise ``NotImplementedError``
+naming their ``ROADMAP.md`` item; paged caches wait for the paged plane.
+
+Caches are updated in place: where the JAX functions return a new cache
+pytree, these write the one they are given (it is also returned), so a
+decode step allocates no second copy of the pool.
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+from typing import Any
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models.lm import rglru
+from repro_torch.models.lm.attention import (
+    NEG_INF,
+    banded_attention,
+    blockwise_attention,
+    decode_attention,
+    full_attention,
+)
+from repro_torch.models.lm.config import LMConfig
+from repro_torch.models.lm.layers import (apply_rope, init_linear, init_mlp,
+                                          linear, mlp, rms_norm)
+from repro_torch.tree import tree_map
+
+BLOCKWISE_THRESHOLD = 2048  # switch to flash-style attention above this seq len
+
+_LATER = {
+    "mla": "MLA is not ported yet (ROADMAP.md queue 1, item 11)",
+    "moe": "MoE is not ported yet (ROADMAP.md queue 1, item 11)",
+    "rwkv": "RWKV-6 is not ported yet (ROADMAP.md queue 1, item 11)",
+}
+
+
+def _dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+# ------------------------------------------------------------------ stage plan
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    mixer: str  # full | swa | mla | rec | rwkv
+    ffn: str  # dense | moe | rwkv
+
+
+def layer_specs(cfg: LMConfig) -> list[LayerSpec]:
+    specs = []
+    for i, kind in enumerate(cfg.block_types()):
+        if kind == "rwkv":
+            specs.append(LayerSpec("rwkv", "rwkv"))
+            continue
+        mixer = {"attn": "full"}.get(kind, kind)
+        if cfg.moe is not None and i >= cfg.moe.first_k_dense:
+            ffn = "moe"
+        else:
+            ffn = "dense"
+        specs.append(LayerSpec(mixer, ffn))
+    return specs
+
+
+def stage_plan(cfg: LMConfig) -> list[tuple[tuple[LayerSpec, ...], int]]:
+    """[(super-layer spec tuple, repeats), ...] covering all layers in order."""
+    specs = layer_specs(cfg)
+    if cfg.block_pattern is not None:
+        period = len(cfg.block_pattern)
+        n_full, rem = divmod(len(specs), period)
+        plan = [(tuple(specs[:period]), n_full)]
+        if rem:
+            plan.append((tuple(specs[n_full * period:]), 1))
+        return plan
+    # group maximal runs of identical specs
+    plan = []
+    for spec, grp in itertools.groupby(specs):
+        plan.append(((spec,), len(list(grp))))
+    return plan
+
+
+def _check_ported(spec: LayerSpec) -> None:
+    for part in (spec.mixer, spec.ffn):
+        if part in _LATER:
+            raise NotImplementedError(_LATER[part])
+
+
+# ----------------------------------------------------------------------- init
+def _init_attn(draw, cfg: LMConfig, dtype, lead):
+    hd = cfg.hd
+    return {
+        "wq": init_linear(draw, cfg.d_model, cfg.n_heads * hd, bias=cfg.qkv_bias,
+                          dtype=dtype, lead=lead),
+        "wk": init_linear(draw, cfg.d_model, cfg.n_kv_heads * hd, bias=cfg.qkv_bias,
+                          dtype=dtype, lead=lead),
+        "wv": init_linear(draw, cfg.d_model, cfg.n_kv_heads * hd, bias=cfg.qkv_bias,
+                          dtype=dtype, lead=lead),
+        "wo": init_linear(draw, cfg.n_heads * hd, cfg.d_model, dtype=dtype, lead=lead),
+    }
+
+
+def _init_layer(draw, cfg: LMConfig, spec: LayerSpec, dtype, lead, device):
+    _check_ported(spec)
+    ones = torch.ones(lead + (cfg.d_model,), dtype=dtype, device=device)
+    p: dict[str, Any] = {"norm1": ones}
+    if spec.mixer in ("full", "swa"):
+        p["attn"] = _init_attn(draw, cfg, dtype, lead)
+    elif spec.mixer == "rec":
+        p["rec"] = rglru.init_rglru_block(draw, cfg, dtype, lead)
+    else:
+        raise ValueError(spec.mixer)
+    p["norm2"] = ones.clone()
+    p["mlp"] = init_mlp(draw, cfg.d_model, cfg.d_ff, cfg.mlp, dtype=dtype, lead=lead)
+    return p
+
+
+def init(generator: torch.Generator, cfg: LMConfig,
+         device: str | torch.device = "cuda") -> dict[str, Any]:
+    """Random parameters shaped like the JAX package's ``init``.
+
+    Normals are drawn from ``generator`` on the generator's own device (a
+    CUDA generator draws a full-width model on the card) and placed on
+    ``device``.  Torch cannot replay ``jax.random``, so parity tests bridge
+    the JAX parameters instead (:func:`repro_torch.interop.params_from_jax`).
+    """
+    dev = resolve_device(device)
+    dtype = _dtype(cfg.param_dtype)
+
+    def draw(shape):
+        return torch.randn(shape, generator=generator, dtype=torch.float32,
+                           device=generator.device).to(dev)
+
+    params: dict[str, Any] = {
+        "embed": (draw((cfg.padded_vocab, cfg.d_model)) * 0.02).to(dtype),
+        "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
+    }
+    if cfg.pos == "learned":
+        params["pos"] = (draw((cfg.max_seq_len, cfg.d_model)) * 0.02).to(dtype)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = init_linear(draw, cfg.d_model, cfg.padded_vocab, dtype=dtype)
+    params["stages"] = [
+        {f"sub{i}": _init_layer(draw, cfg, sp, dtype, (repeats,), dev)
+         for i, sp in enumerate(specs)}
+        for specs, repeats in stage_plan(cfg)]
+    return params
+
+
+def compute_copy(params, cfg: LMConfig, device: str | torch.device = "cuda"):
+    """The parameter tree on ``device`` with every weight in the compute dtype.
+
+    The layers cast each weight to the activation dtype at every call, as the
+    JAX package does; a tree already in that dtype makes those casts no-ops
+    with the same values, and halves the bytes a bf16 decode step reads.  The
+    RG-LRU's ``lam`` stays float32: the gates read it in float32.  Leaves
+    already in place are shared, not copied, so serving planes handed one
+    compute copy share one set of weight tensors.
+    """
+    dev = resolve_device(device)
+    cdtype = _dtype(cfg.dtype)
+
+    def walk(node, key=None):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, key) for v in node]
+        return node.to(device=dev, dtype=node.dtype if key == "lam" else cdtype)
+
+    return walk(params)
+
+
+# -------------------------------------------------------------------- mixers
+def _attn_mixer(p, cfg: LMConfig, spec: LayerSpec, x, positions, *, mode,
+                cache=None, lengths=None):
+    """Returns (out, cache).  In decode and prefill the given cache is
+    written in place."""
+    b, s, _ = x.shape
+    hd = cfg.hd
+    window = cfg.window if spec.mixer == "swa" else None
+
+    a = p["attn"]
+    q = linear(a["wq"], x).reshape(b, s, cfg.n_heads, hd)
+    k = linear(a["wk"], x).reshape(b, s, cfg.n_kv_heads, hd)
+    v = linear(a["wv"], x).reshape(b, s, cfg.n_kv_heads, hd)
+    if cfg.pos == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    rows = torch.arange(b, device=x.device)
+
+    if mode == "decode":
+        kc, vc = cache["k"], cache["v"]
+        if window is not None:  # ring buffer of size window
+            slot = lengths % window
+            kc[rows, slot] = k[:, 0].to(kc.dtype)
+            vc[rows, slot] = v[:, 0].to(vc.dtype)
+            n_valid = torch.clamp(lengths + 1, max=window)
+            out = _ring_decode(q, kc, vc, n_valid)
+        else:
+            kc[rows, lengths] = k[:, 0].to(kc.dtype)
+            vc[rows, lengths] = v[:, 0].to(vc.dtype)
+            out = decode_attention(q, kc, vc, lengths + 1)
+        return linear(a["wo"], out.reshape(b, 1, -1)), {"k": kc, "v": vc}
+
+    # train / prefill
+    if window is not None and s > 2 * window:
+        out = banded_attention(q, k, v, window=window,
+                               q_chunk=min(cfg.q_chunk, window))
+    elif s > BLOCKWISE_THRESHOLD:
+        out = blockwise_attention(q, k, v, causal=True, window=window,
+                                  q_chunk=min(cfg.q_chunk, s),
+                                  kv_chunk=min(cfg.kv_chunk, s))
+    else:
+        out = full_attention(q, k, v, causal=True, window=window)
+    y = linear(a["wo"], out.reshape(b, s, -1))
+
+    if mode != "prefill":
+        return y, None
+    kc, vc = cache["k"], cache["v"]
+    if window is not None:
+        tail = min(s, window)
+        slots = positions[:, -tail:] % window  # [B, tail]
+        kc.zero_()
+        vc.zero_()
+        kc[rows[:, None], slots] = k[:, -tail:].to(kc.dtype)
+        vc[rows[:, None], slots] = v[:, -tail:].to(vc.dtype)
+    else:
+        kc[:, :s] = k.to(kc.dtype)
+        vc[:, :s] = v.to(vc.dtype)
+    return y, {"k": kc, "v": vc}
+
+
+def _ring_decode(q1, k_ring, v_ring, n_valid):
+    """Decode against a ring buffer: all slots < n_valid (per batch) are live;
+    slot order is irrelevant to attention."""
+    kpos = torch.arange(k_ring.shape[1], device=q1.device)[None, :]
+    mask = kpos < n_valid[:, None]
+    # reuse decode_attention by passing per-batch "length" = window validity
+    return decode_attention(q1, torch.where(mask[..., None, None], k_ring, 0),
+                            v_ring, n_valid)
+
+
+# --------------------------------------------------------------------- layers
+def _layer_apply(p, cfg: LMConfig, spec: LayerSpec, x, positions, *, mode,
+                 cache=None, lengths=None):
+    """One block.  Returns (x, new_cache)."""
+    _check_ported(spec)
+    h = rms_norm(x, p["norm1"].to(x.dtype), cfg.norm_eps)
+    if spec.mixer == "rec":
+        out, new_cache = rglru.rglru_block(p["rec"], cfg, h,
+                                           cache=None if mode == "train" else cache)
+    else:
+        out, new_cache = _attn_mixer(p, cfg, spec, h, positions, mode=mode,
+                                     cache=cache, lengths=lengths)
+    x = x + out
+    h2 = rms_norm(x, p["norm2"].to(x.dtype), cfg.norm_eps)
+    x = x + mlp(p["mlp"], h2, cfg.mlp)
+    return x, new_cache
+
+
+def _write(dst: torch.Tensor, src: torch.Tensor) -> None:
+    if src is not dst:
+        dst.copy_(src)
+
+
+def _run_stages(params, cfg: LMConfig, x, positions, *, mode, caches=None,
+                lengths=None):
+    """Each stage's repeats in order; a layer's new cache is written into its
+    slice of the stacked cache.  Returns (x, caches)."""
+    plan = stage_plan(cfg)
+    for (specs, repeats), stage_p, stage_c in zip(
+            plan, params["stages"], caches or [None] * len(plan)):
+        for r in range(repeats):
+            lp = tree_map(lambda t: t[r], stage_p)
+            lc = None if stage_c is None else tree_map(lambda t: t[r], stage_c)
+            for i, sp in enumerate(specs):
+                sub_c = None if lc is None else lc[f"sub{i}"]
+                x, nc = _layer_apply(lp[f"sub{i}"], cfg, sp, x, positions,
+                                     mode=mode, cache=sub_c, lengths=lengths)
+                if sub_c is not None:
+                    tree_map(_write, sub_c, nc)
+    return x, caches
+
+
+# ----------------------------------------------------------------- public API
+def embed_tokens(params, cfg: LMConfig, tokens, *, pos_offset=None):
+    """tokens: [B, S] int -> (x [B, S, d] in compute dtype, positions).
+
+    The JAX package's ``prefix_embeds`` (patch/frame frontends) waits for
+    the archs that use it.
+    """
+    cdtype = _dtype(cfg.dtype)
+    x = params["embed"][tokens].to(cdtype)
+    b, s, _ = x.shape
+    steps = torch.arange(s, device=x.device)[None]
+    if pos_offset is None:
+        positions = steps.expand(b, s)
+    else:
+        positions = pos_offset[:, None] + steps
+    if cfg.pos == "learned":
+        x = x + params["pos"][positions].to(cdtype)
+    return x, positions
+
+
+def logits_fn(params, cfg: LMConfig, x):
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]["w"]
+    logits = x @ w.to(x.dtype)
+    if cfg.padded_vocab != cfg.vocab:
+        # mask padding columns so softmax/argmax never see them
+        pad_mask = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab
+        logits = torch.where(pad_mask, torch.tensor(NEG_INF, dtype=logits.dtype,
+                                                    device=x.device), logits)
+    return logits
+
+
+def forward(params, cfg: LMConfig, tokens):
+    """Forward over whole sequences: logits [B, S, V] (the JAX version's
+    first output; its second, the MoE auxiliary loss, waits for MoE)."""
+    x, positions = embed_tokens(params, cfg, tokens)
+    x, _ = _run_stages(params, cfg, x, positions, mode="train")
+    x = rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
+    return logits_fn(params, cfg, x)
+
+
+# -------------------------------------------------------------------- serving
+def init_cache(cfg: LMConfig, batch: int, max_len: int,
+               device: str | torch.device = "cuda"):
+    """Cache tree mirroring the stage plan (stacked over repeats)."""
+    dev = resolve_device(device)
+    cdtype = _dtype(cfg.dtype)
+    hd = cfg.hd
+
+    def one_layer(spec: LayerSpec, repeats: int):
+        _check_ported(spec)
+        if spec.mixer in ("full", "swa"):
+            s = max_len if spec.mixer == "full" else min(cfg.window, max_len)
+            shape = (repeats, batch, s, cfg.n_kv_heads, hd)
+            return {"k": torch.zeros(shape, dtype=cdtype, device=dev),
+                    "v": torch.zeros(shape, dtype=cdtype, device=dev)}
+        c = rglru.init_rglru_cache(cfg, batch, cdtype, dev)
+        return {k: v.expand((repeats,) + v.shape).contiguous() for k, v in c.items()}
+
+    return [{f"sub{i}": one_layer(sp, repeats) for i, sp in enumerate(specs)}
+            for specs, repeats in stage_plan(cfg)]
+
+
+def scatter_cache(cache, sub, slots):
+    """Write a k-batch cache tree into k (arbitrary, non-contiguous) lanes of
+    a pool cache, in place.
+
+    ``cache``: the slot-pool cache from ``init_cache`` (every leaf
+    stage-stacked ``[repeats, batch, ...]``, batch at axis 1).  ``sub``: the
+    same tree with batch ``k`` (a batched-prefill output).  ``slots``: ``[k]``
+    lane indices.  One indexed write per leaf.
+    """
+    def put(big, small):
+        idx = torch.as_tensor(slots, dtype=torch.long, device=big.device)
+        big[:, idx] = small.to(big.dtype)
+        return big
+
+    return tree_map(put, cache, sub)
+
+
+def prefill(params, cfg: LMConfig, tokens, cache):
+    """Fill ``cache`` (in place) from a prompt.  Returns (last-token logits,
+    cache, lengths)."""
+    x, positions = embed_tokens(params, cfg, tokens)
+    x, cache = _run_stages(params, cfg, x, positions, mode="prefill", caches=cache)
+    x = rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
+    logits = logits_fn(params, cfg, x[:, -1:])[:, 0]
+    lengths = torch.full((tokens.shape[0],), x.shape[1], dtype=torch.long,
+                         device=x.device)
+    return logits, cache, lengths
+
+
+def decode_step(params, cfg: LMConfig, token, cache, lengths):
+    """One decode step.  token: [B, 1], lengths: [B] -> (logits [B, V],
+    cache), the cache written in place."""
+    x, positions = embed_tokens(params, cfg, token, pos_offset=lengths)
+    x, cache = _run_stages(params, cfg, x, positions, mode="decode",
+                           caches=cache, lengths=lengths)
+    x = rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
+    return logits_fn(params, cfg, x[:, 0]), cache

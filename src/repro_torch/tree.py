@@ -1,8 +1,10 @@
-"""Nested-dict parameter trees: the port's stand-in for JAX pytrees.
+"""Parameter trees of dicts and lists: the port's stand-in for JAX pytrees.
 
-Parameters, gradients and optimizer moments are nested ``dict``s of tensors
-shaped like the JAX package's pytrees, so a JAX tree bridges with one copy
-(:mod:`repro_torch.interop`) and gradients compare leaf by leaf.
+Parameters, gradients, optimizer moments and serving caches are nested
+``dict``s and ``list``s of tensors shaped like the JAX package's pytrees
+(the LM's ``params["stages"]`` and its cache are lists), so a JAX tree
+bridges with one copy (:mod:`repro_torch.interop`) and trees compare leaf by
+leaf.  Anything else, tuples included, is a leaf.
 """
 from __future__ import annotations
 
@@ -13,22 +15,35 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     """Apply ``fn`` leaf-wise over ``tree`` and congruent ``rest`` trees."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    if isinstance(tree, list):
+        return [tree_map(fn, t, *(r[i] for r in rest)) for i, t in enumerate(tree)]
     return fn(tree, *rest)
 
 
-def tree_leaves(tree: Any) -> list:
-    """Leaves in key-sorted depth-first order (JAX's dict flattening order)."""
+def _children(tree: Any) -> list[tuple[Any, Any]] | None:
+    """``(key, child)`` pairs in JAX's flattening order (dict keys sorted,
+    lists by index), or None for a leaf."""
     if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
-    return [tree]
+        return [(k, tree[k]) for k in sorted(tree)]
+    if isinstance(tree, list):
+        return list(enumerate(tree))
+    return None
+
+
+def tree_leaves(tree: Any) -> list:
+    """Leaves depth-first in JAX's flattening order."""
+    kids = _children(tree)
+    if kids is None:
+        return [tree]
+    return [leaf for _, child in kids for leaf in tree_leaves(child)]
 
 
 def tree_paths(tree: Any, prefix: str = "") -> list[str]:
-    """``"a/b"`` path of every leaf, in :func:`tree_leaves` order."""
-    if isinstance(tree, dict):
-        return [p for k in sorted(tree)
-                for p in tree_paths(tree[k], f"{prefix}{k}/")]
-    return [prefix.rstrip("/")]
+    """``"a/0/b"`` path of every leaf, in :func:`tree_leaves` order."""
+    kids = _children(tree)
+    if kids is None:
+        return [prefix.rstrip("/")]
+    return [p for k, child in kids for p in tree_paths(child, f"{prefix}{k}/")]
 
 
 def tree_unflatten(like: Any, leaves: list) -> Any:
@@ -38,6 +53,8 @@ def tree_unflatten(like: Any, leaves: list) -> Any:
     def build(node):
         if isinstance(node, dict):
             return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, list):
+            return [build(child) for child in node]
         return next(it)
 
     return build(like)

@@ -10,6 +10,8 @@ import pytest
 import torch
 
 from repro_torch.kernels.diffusion_conv.kernel import hop_project, hop_project_plain
+from repro_torch.kernels.linear_scan import kernel as ls_kernel
+from repro_torch.kernels.linear_scan import linear_scan, linear_scan_ref
 from repro_torch.kernels.window_gather import window_gather
 from repro_torch.kernels.window_gather import kernel as wg_kernel
 
@@ -85,3 +87,46 @@ def test_cuda_hop_project_rejects_what_it_cannot_take(cuda):
     with pytest.raises(ValueError):
         hop_project(s.double(), z[..., :3].double(), torch.zeros(3, 3, device=cuda),
                     torch.zeros(4, 2, 3, device=cuda))
+
+
+SCAN_CASES = [  # (B, S, D, a/b dtype, h0 dtype or None, decay)
+    (8, 1, 2560, torch.float32, torch.float32, None),    # RG-LRU decode shape
+    (8, 1, 2560, torch.float32, torch.bfloat16, None),   # decode, bf16 carry in
+    (8, 512, 2560, torch.float32, torch.float32, None),  # RG-LRU prefill shape
+    (2, 128, 2560, torch.float32, torch.float32, None),
+    (4, 100, 2560, torch.bfloat16, torch.bfloat16, None),
+    (3, 37, 33, torch.float32, None, None),              # ragged S and D
+    (2, 1, 33, torch.bfloat16, None, None),
+    (5, 64, 7, torch.float32, torch.float32, 0.0),       # decay 0: h_t = b_t
+    (5, 64, 129, torch.float32, torch.float32, 1.0),     # decay 1: cumsum
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,d,dtype,h_dtype,decay", SCAN_CASES)
+def test_cuda_linear_scan_bit_exact_to_plain(cuda, b, s, d, dtype, h_dtype, decay):
+    rng = np.random.default_rng(3)
+    a = (np.full((b, s, d), decay, np.float32) if decay is not None
+         else rng.uniform(0.7, 1.0, (b, s, d)).astype(np.float32))
+    a = torch.as_tensor(a).to(cuda, dtype)
+    bb = torch.as_tensor(rng.standard_normal((b, s, d)).astype(np.float32)).to(cuda, dtype)
+    h0 = (None if h_dtype is None else
+          torch.as_tensor(rng.standard_normal((b, d)).astype(np.float32)).to(cuda, h_dtype))
+    before = ls_kernel.linear_scan.launches
+    seq, last = linear_scan(a, bb, h0, use_pallas=True)
+    torch.cuda.synchronize()
+    assert ls_kernel.linear_scan.launches == before + 1
+    want_seq, want_last = linear_scan_ref(a, bb, h0)
+    assert seq.dtype == dtype and last.dtype == (h_dtype or dtype)
+    assert torch.equal(seq, want_seq) and torch.equal(last, want_last)
+
+
+@pytest.mark.cuda
+def test_cuda_linear_scan_rejects_what_it_cannot_take(cuda):
+    a = torch.ones(2, 3, 4, device=cuda)
+    with pytest.raises(ValueError, match="a must be"):
+        linear_scan(a.double(), a.double(), use_pallas=True)
+    with pytest.raises(ValueError, match="b must be"):
+        linear_scan(a, a.bfloat16(), use_pallas=True)
+    with pytest.raises(ValueError, match="h0 must be"):
+        linear_scan(a, a, torch.zeros(2, 5, device=cuda), use_pallas=True)

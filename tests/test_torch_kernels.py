@@ -1,4 +1,5 @@
-"""Port parity for the two kernel modules of the ST-GNN path.
+"""Port parity for the kernel modules: the ST-GNN path's two and the RG-LRU's
+linear scan.
 
 On the CPU the port's wrappers run each kernel's plain PyTorch version; the
 JAX side runs its oracles and its Pallas kernels in interpret mode.  The
@@ -14,11 +15,15 @@ from repro.core.batching import gather_batch as jax_gather_batch
 from repro.kernels.diffusion_conv import diffusion_conv as jax_diffusion_conv
 from repro.kernels.diffusion_conv import diffusion_conv_ref as jax_diffusion_conv_ref
 from repro.kernels.diffusion_conv.kernel import hop_project as jax_hop_project
+from repro.kernels.linear_scan import linear_scan as jax_linear_scan
+from repro.kernels.linear_scan import linear_scan_ref as jax_linear_scan_ref
 from repro.kernels.window_gather import window_gather as jax_window_gather
 from repro.kernels.window_gather import window_gather_ref as jax_window_gather_ref
 from repro_torch.kernels.common import kernel_defaults
 from repro_torch.kernels.diffusion_conv import diffusion_conv, diffusion_conv_ref
 from repro_torch.kernels.diffusion_conv.kernel import hop_project, hop_project_plain
+from repro_torch.kernels.linear_scan import kernel as ls_kernel
+from repro_torch.kernels.linear_scan import linear_scan
 from repro_torch.kernels.window_gather import window_gather
 from repro_torch.kernels.window_gather import kernel as wg_kernel
 from repro_torch.pipeline.gathers import GATHERS, resolve_gather
@@ -174,3 +179,84 @@ def test_diffusion_conv_kernel_path_refuses_gradients():
     assert out.shape == (2, 8, 4)
     diffusion_conv(x, sup, w, b, k_hops=2).sum().backward()  # plain path trains
     assert w.grad is not None and torch.isfinite(w.grad).all()
+
+
+# --------------------------------------------------------------- linear_scan
+# tests/test_kernels.py's linear_scan cases and tolerance: a float32 carry
+# through S steps in both packages.
+SCAN_ATOL = 1e-5
+
+
+def _scan_inputs(rng, b, s, d, decay=None):
+    a = (np.full((b, s, d), decay, np.float32) if decay is not None
+         else rng.uniform(0.7, 1.0, (b, s, d)).astype(np.float32))
+    bb = rng.standard_normal((b, s, d)).astype(np.float32)
+    h0 = rng.standard_normal((b, d)).astype(np.float32)
+    return a, bb, h0
+
+
+@pytest.mark.parametrize("b,s,d,chunk", [
+    (8, 64, 128, 32), (2, 37, 33, 16), (1, 5, 256, 8), (16, 512, 128, 256),
+    (4, 128, 64, 128),
+])
+def test_linear_scan_matches_jax_ref_and_pallas(b, s, d, chunk):
+    a, bb, h0 = _scan_inputs(np.random.default_rng(1), b, s, d)
+    ja, jb, jh = jnp.asarray(a), jnp.asarray(bb), jnp.asarray(h0)
+    r_seq, r_last = jax_linear_scan_ref(ja, jb, jh)
+    p_seq, p_last = jax_linear_scan(ja, jb, jh, use_pallas=True, chunk=chunk)
+    for use_pallas in (False, True):
+        t_seq, t_last = linear_scan(torch.as_tensor(a), torch.as_tensor(bb),
+                                    torch.as_tensor(h0), use_pallas=use_pallas)
+        for want in (r_seq, p_seq):
+            np.testing.assert_allclose(t_seq.numpy(), np.asarray(want), atol=SCAN_ATOL)
+        for want in (r_last, p_last):
+            np.testing.assert_allclose(t_last.numpy(), np.asarray(want), atol=SCAN_ATOL)
+
+
+@pytest.mark.parametrize("decay", [0.0, 1.0, 0.5])
+@pytest.mark.parametrize("b,s,d", [(3, 1, 33), (2, 100, 8), (5, 17, 128)])
+def test_linear_scan_decays_match_jax_pallas(b, s, d, decay):
+    """Decay 0 (h_t = b_t), 1 (a running sum) and between, at S = 1 and
+    ragged S and D, from ``h0=None`` (zeros)."""
+    a, bb, _ = _scan_inputs(np.random.default_rng(b * 7 + s), b, s, d, decay)
+    ja, jb = jnp.asarray(a), jnp.asarray(bb)
+    r_seq, r_last = jax_linear_scan_ref(ja, jb, jnp.zeros((b, d)))
+    p_seq, p_last = jax_linear_scan(ja, jb, None, use_pallas=True, chunk=32)
+    t_seq, t_last = linear_scan(torch.as_tensor(a), torch.as_tensor(bb),
+                                use_pallas=True)
+    for want in (r_seq, p_seq):
+        np.testing.assert_allclose(t_seq.numpy(), np.asarray(want), atol=1e-4,
+                                   rtol=1e-4)
+    np.testing.assert_allclose(t_last.numpy(), np.asarray(p_last), atol=1e-4,
+                               rtol=1e-4)
+    if decay == 0.0:
+        assert np.array_equal(t_seq.numpy(), bb)
+
+
+def test_linear_scan_identity_decay_is_cumsum():
+    b, s, d = 2, 20, 8
+    bb = np.random.default_rng(0).standard_normal((b, s, d)).astype(np.float32)
+    jseq, _ = jax_linear_scan(jnp.ones((b, s, d)), jnp.asarray(bb), None,
+                              use_pallas=True, chunk=5)
+    seq, last = linear_scan(torch.ones(b, s, d), torch.as_tensor(bb),
+                            use_pallas=True)
+    np.testing.assert_allclose(seq.numpy(), np.cumsum(bb, axis=1), atol=SCAN_ATOL)
+    np.testing.assert_allclose(seq.numpy(), np.asarray(jseq), atol=SCAN_ATOL)
+    assert torch.equal(last, seq[:, -1])
+
+
+def test_linear_scan_dtypes_and_cpu_counts_no_launch():
+    """h_seq in a's dtype, h_last in h0's (a's without h0), and the float32
+    carry under bfloat16 inputs; a CPU tensor launches nothing."""
+    rng = np.random.default_rng(2)
+    a, bb, h0 = (torch.as_tensor(x) for x in _scan_inputs(rng, 2, 9, 5))
+    before = ls_kernel.linear_scan.launches
+    seq, last = linear_scan(a.bfloat16(), bb.bfloat16(), h0, use_pallas=True)
+    assert seq.dtype == torch.bfloat16 and last.dtype == torch.float32
+    assert linear_scan(a, bb, use_pallas=True)[1].dtype == torch.float32
+    assert ls_kernel.linear_scan.launches == before
+    h = h0.clone()
+    for t in range(9):  # the float32 carry, rounded to bf16 only on output
+        h = a[:, t].bfloat16().float() * h + bb[:, t].bfloat16().float()
+        assert torch.equal(seq[:, t], h.bfloat16())
+    assert torch.equal(last, h)
