@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's two main paths through their user entry points, each at
+Drives the port's three main paths through their user entry points, each at
 the full width of a registered arch, with every kernel count set to 0 just
 before a path and read just after it:
 
@@ -18,21 +18,37 @@ before a path and read just after it:
   ``ServeEngine(..., ServeConfig(slots=8, max_len=1024, max_new_tokens=32))``
   serves 16 greedy requests with ``use_pallas_scan=True``, every RG-LRU scan
   through the CUDA ``linear_scan`` (18 launches per prefill group and per
-  decode step); one prefill group is run again through the plain scan.
+  decode step); one prefill group is run again through the plain scan;
+- the measured-dispatch path: ``build_pipeline(..., gather="auto").fit()``
+  for 5 steps at the ST-GNN width (its losses equal a ``gather="pallas"``
+  run's on the same feed), ``diffusion_conv(impl="auto")`` at the forecast
+  shape, ``linear_scan(impl="auto")`` at the decode and prefill shapes and
+  ``flash_attention(impl="auto")`` at recurrentgemma-2b's prompt group
+  [2, 512, 10 x 256] in bf16.  It runs twice.  First under
+  ``set_autotune(mode="tune")`` with a fresh cache: on the card the tuner
+  measures the kernel's launch shapes at the power-of-two envelopes, with
+  the plain version as the admission oracle only; each verdict's candidate
+  table is printed, every verdict must be the kernel and no candidate may
+  be rejected.  Then, counts from 0, under a fresh ``mode="load"`` policy:
+  every verdict must read back from the cache file, every kernel must be
+  launched by the dispatched calls, and each result is held against its
+  plain version.
 
 Phases: device (card name and power limit; TF32 off for matmuls and cuDNN);
 build (the CUDA kernels compiled from ``src/repro_torch``, one nvcc per
 source in parallel); kernels (each kernel against its plain PyTorch version
 at the shapes its path gives it: window_gather and linear_scan bit-exact,
-hop_project within fp32 tolerance, plus edge cases); the two paths; times
-(CUDA events, medians; each kernel's device time beside its bound from the
-H100 datasheet, its plain version and a one-call PyTorch yardstick where one
+hop_project within fp32 tolerance, flash_attention within f32 atol 5e-5 and
+bf16 atol 3e-2, plus edge cases); the three paths; times (CUDA events,
+medians; each kernel's device time beside its bound from the H100
+datasheet, its plain version and a one-call PyTorch yardstick where one
 exists).
 
 Cuts: the ST-GNN series has 8,640 entries (30 days of 5-minute bins)
 instead of PeMS-All-LA's 105,120, and the train split is cut to the 20
-steps' 640 windows.  The serving cell cuts traffic only (16 requests, prompt
-lengths drawn from 128, 256 and 512 tokens); no width or depth is cut.
+steps' 640 windows (5 steps' 160 on the dispatch path).  The serving cell
+cuts traffic only (16 requests, prompt lengths drawn from 128, 256 and 512
+tokens); no width or depth is cut.
 
 Prints the kernels' JSON line, then ``{"ok": true, "device": {...}}`` as the
 last line; exits non-zero on any failure, and without a card.
@@ -50,6 +66,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -58,9 +75,11 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# H100 SXM datasheet peaks (dense, 700 W): HBM3 bandwidth, fp32 on CUDA cores.
+# H100 SXM datasheet peaks (dense, 700 W): HBM3 bandwidth, fp32 on CUDA
+# cores, bf16 on the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 
 NODES, FEATURES, HIDDEN, K_HOPS, HORIZON = 2_716, 2, 64, 2, 12
 ENTRIES = 8_640  # cut from 105,120: 30 days of 5-minute bins
@@ -78,6 +97,13 @@ RG_AGREE_STEPS = 8  # greedy decode steps compared between the two scans
 # so the two should agree exactly; the bound allows a few bf16 ulps at the
 # logits' magnitude in case a library op is not deterministic.
 RG_LOGIT_ATOL = 0.125
+
+# flash_attention against its plain version (tests/test_flash_attention.py's
+# tolerances): f32 sums in another order; bf16 outputs, and the kernel rounds
+# p to bf16 before P·V as the JAX kernel does.
+FLASH_ATOL = {torch.float32: 5e-5, torch.bfloat16: 3e-2}
+FLASH_SHAPE = (2, 512)  # [B, S] of the timed recurrentgemma-2b prompt group
+DISPATCH_STEPS = 5      # train steps of each fit on the dispatch path
 
 
 def check(ok: bool, what: str) -> None:
@@ -220,9 +246,10 @@ def make_data(adj):
     return raw
 
 
-def phase_train(raw, supports):
+def stgnn_pipeline(raw, supports, gather: str, steps: int):
+    """The ST-GNN trainer at full width: ``steps`` train steps of BATCH
+    windows, params drawn from SEED, the window gather named ``gather``."""
     from repro_torch.core import IndexDataset, WindowSpec
-    from repro_torch.kernels.window_gather.kernel import window_gather
     from repro_torch.models import pgt_dcrnn
     from repro_torch.optim import AdamConfig
     from repro_torch.pipeline import PipelineConfig, build_pipeline
@@ -234,10 +261,7 @@ def phase_train(raw, supports):
                                    input_len=HORIZON, horizon=HORIZON)
     spec = WindowSpec(horizon=HORIZON, input_len=HORIZON)
     ds = IndexDataset.from_raw(raw, spec)
-    ds = dataclasses.replace(ds, train_windows=ds.train_windows[:TRAIN_STEPS * BATCH])
-    log(f"train: {ds.n_windows} windows (train cut to {len(ds.train_windows)} "
-        f"= {TRAIN_STEPS} steps of {BATCH}; val {len(ds.val_windows)}, "
-        f"test {len(ds.test_windows)})")
+    ds = dataclasses.replace(ds, train_windows=ds.train_windows[:steps * BATCH])
     params = pgt_dcrnn.init(torch.Generator().manual_seed(SEED), cfg, device="cuda")
 
     def loss_fn(p, x, y):
@@ -245,10 +269,27 @@ def phase_train(raw, supports):
 
     pipe = build_pipeline(
         None, spec, loss_fn, params,
-        PipelineConfig(batch_per_rank=BATCH, gather="pallas", seed=SEED,
+        PipelineConfig(batch_per_rank=BATCH, gather=gather, seed=SEED,
                        device="cuda", adam=AdamConfig(lr=1e-3),
                        loop=TrainLoopConfig(epochs=1, log_every=1)),
         dataset=ds)
+    return cfg, spec, pipe
+
+
+def fit_losses(pipe) -> list[float]:
+    _, history = pipe.fit(eval_fn=None)
+    torch.cuda.synchronize()
+    return [r["loss"] for r in history if "epoch_time_s" not in r]
+
+
+def phase_train(raw, supports):
+    from repro_torch.kernels.window_gather.kernel import window_gather
+
+    cfg, spec, pipe = stgnn_pipeline(raw, supports, "pallas", TRAIN_STEPS)
+    ds = pipe.dataset
+    log(f"train: {ds.n_windows} windows (train cut to {len(ds.train_windows)} "
+        f"= {TRAIN_STEPS} steps of {BATCH}; val {len(ds.val_windows)}, "
+        f"test {len(ds.test_windows)})")
     before = window_gather.launches
     t0 = time.perf_counter()
     state, history = pipe.fit(eval_fn=None)
@@ -647,6 +688,209 @@ def profile_decode(eng) -> None:
     log(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=15))
 
 
+# ------------------------------------------------------- flash attention
+def flash_inputs(gen, b, s, h, hkv, d, dtype):
+    """Random q, k, v in the model layout [B, S, heads, D]."""
+    return tuple(torch.randn((b, s, n, d), device="cuda", generator=gen).to(dtype)
+                 for n in (h, hkv, hkv))
+
+
+def phase_flash_kernel(rg_cfg) -> float:
+    """flash_attention against its plain version and the port's
+    full_attention at recurrentgemma-2b's attention width (bf16, causal)
+    over the served prompt-group shapes and the arch's 2,048 window, at the
+    JAX kernels bench's GQA shape, and at edge cases.  Returns the max abs
+    error at the timed shape."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.lm.attention import full_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    h, hkv, d = rg_cfg.n_heads, rg_cfg.n_kv_heads, rg_cfg.hd
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(f"recurrentgemma-2b [{b}, {s}]", (b, s, h, hkv, d), bf16, True)
+             for b, s in (FLASH_SHAPE, (4, 256), (4, 128), (1, rg_cfg.window))]
+    cases += [("kernels bench GQA 8:2", (1, 512, 8, 2, 64), f32, True),
+              ("non-causal, ragged S=100", (2, 100, 4, 2, 64), f32, False),
+              ("non-causal, ragged S=300", (1, 300, 4, 2, 64), f32, False),
+              ("non-causal, ragged S=300, bf16", (1, 300, h, hkv, d), bf16, False),
+              ("MQA", (1, 256, 8, 1, 128), f32, True),
+              ("H = Hkv", (2, 128, 6, 6, 32), f32, True)]
+    cases += [(f"D = {dd}", (2, 200, 4, 2, dd), f32, True) for dd in (16, 64, 128, 256)]
+    err_main = None
+    for label, (b, s, nh, nkv, dd), dtype, causal in cases:
+        q, k, v = flash_inputs(gen, b, s, nh, nkv, dd, dtype)
+        with torch.no_grad():
+            got = flash_attention(q, k, v, causal=causal, use_pallas=True)
+            torch.cuda.synchronize()
+            want = flash_attention(q, k, v, causal=causal)
+            full = full_attention(q, k, v, causal=causal)
+        err = float((got.float() - want.float()).abs().max())
+        err_full = float((got.float() - full.float()).abs().max())
+        atol = FLASH_ATOL[dtype]
+        ok = err <= atol and err_full <= atol and got.dtype == dtype
+        log(f"flash_attention {label} [{b}, {s}, {nh}/{nkv} x {dd}] {dtype} "
+            f"causal={causal}: max_abs_err {err:.3e} vs plain, {err_full:.3e} vs "
+            f"full_attention (atol {atol}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"flash_attention {label} outside tolerance")
+        if err_main is None:
+            err_main = err
+    return err_main
+
+
+def flash_bound_ms(b, s, h, hkv, d, itemsize=2) -> tuple[float, str]:
+    """q, k, v read once and o written once against 4·D operations per
+    visible (query, key) pair of a causal mask, at the bf16 tensor-core peak."""
+    nbytes = (2 * b * h * s + 2 * b * hkv * s) * d * itemsize
+    flops = 4 * d * b * h * s * (s + 1) // 2
+    by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def phase_flash_times(rg_cfg, launches, err) -> dict:
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    b, s = FLASH_SHAPE
+    h, hkv, d = rg_cfg.n_heads, rg_cfg.n_kv_heads, rg_cfg.hd
+    q, k, v = flash_inputs(gen, b, s, h, hkv, d, torch.bfloat16)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    with torch.no_grad():
+        ms = median_ms(lambda: flash_attention(q, k, v, use_pallas=True), inner=10,
+                       device_only=True)
+        plain = median_ms(lambda: flash_attention(q, k, v), inner=5, device_only=True)
+        lib = median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), inner=20, device_only=True)
+    bound, by = flash_bound_ms(b, s, h, hkv, d)
+    flops = 4 * d * b * h * s * (s + 1) // 2
+    log(f"time: flash_attention [{b}, {s}, {h}/{hkv} x {d}] bf16 causal: {ms:.4f} ms "
+        f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, "
+        f"scaled_dot_product_attention {lib:.4f} ms, bound {bound:.5f} ms ({by})")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:66",
+            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib}
+
+
+# ------------------------------------------------- the measured-dispatch path
+def print_verdicts(cache_dir) -> None:
+    """Each verdict's candidate table; fails unless the verdict is the
+    kernel and no candidate was rejected (on the card only the kernel's
+    launch shapes compete)."""
+    from repro_torch.kernels.autotune import cache_path, load_cache
+
+    entries = load_cache(cache_path("cuda", cache_dir), "cuda")
+    for key, e in sorted(entries.items()):
+        rows = []
+        for c, r in sorted(e["candidates"].items()):
+            row = f"{c} {r['us']} us" if r.get("us") is not None else \
+                f"{c} REJECTED ({r['rejected']})"
+            if "of_allowance" in r:
+                row += (f" [max_abs_err {r['max_abs_err']:.3e}: {r['of_allowance']} of "
+                        f"the allowance, {r['of_jax_tol']} of the JAX tolerance]")
+            rows.append(row)
+        log(f"verdict {key}: dims {e['dims']} -> {e['variant']} {e['params']} "
+            f"({e['us']} us); candidates: {', '.join(rows)}")
+        check(e["variant"] == "pallas", f"{key}: the verdict is not the kernel")
+        for c, r in e["candidates"].items():
+            check(c.startswith("pallas"), f"{key}: {c} competed on the card")
+            check("rejected" not in r, f"{key}: kernel candidate {c} rejected: {r}")
+
+
+def dispatch_run(raw, supports, inputs, mode, cache_dir):
+    """One run of the measured-dispatch path under ``mode``."""
+    from repro_torch.kernels import autotuning, diffusion_conv, flash_attention, linear_scan
+
+    x, w, bias, scans, (q, k, v) = inputs
+    with autotuning(mode=mode, cache_dir=cache_dir), torch.no_grad():
+        with torch.enable_grad():
+            _, _, pipe = stgnn_pipeline(raw, supports, "auto", DISPATCH_STEPS)
+            losses = fit_losses(pipe)
+        y = diffusion_conv(x, supports, w, bias, k_hops=K_HOPS, impl="auto")
+        hs = [linear_scan(a, bb, impl="auto") for a, bb in scans]
+        o = flash_attention(q, k, v, impl="auto")
+        torch.cuda.synchronize()
+    return pipe, losses, y, hs, o
+
+
+def phase_dispatch(raw, supports, rg_cfg, counters) -> dict:
+    """The measured-dispatch path, tuned and then dispatched from the cache;
+    returns each kernel's launches by the dispatched calls."""
+    from repro_torch.kernels import (autotuning, diffusion_conv, flash_attention,
+                                     linear_scan, verdict_for)
+
+    # The reference run: gather="pallas" on the same feed.
+    _, _, ref_pipe = stgnn_pipeline(raw, supports, "pallas", DISPATCH_STEPS)
+    ref_losses = fit_losses(ref_pipe)
+    del ref_pipe
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    n, c = NODES, FEATURES + HIDDEN
+    x = torch.randn((BATCH, n, c), device="cuda", generator=gen)
+    w = torch.randn(((1 + 2 * K_HOPS) * c, 2 * HIDDEN), device="cuda", generator=gen) / c ** 0.5
+    bias = torch.zeros(2 * HIDDEN, device="cuda")
+    scans = [scan_inputs(gen, bb, ss, rg_cfg.lru_width) for bb, ss in
+             ((RG_SLOTS, 1), FLASH_SHAPE)]
+    q, k, v = flash_inputs(gen, *FLASH_SHAPE, rg_cfg.n_heads, rg_cfg.n_kv_heads,
+                           rg_cfg.hd, torch.bfloat16)
+    inputs = (x, w, bias, scans, (q, k, v))
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(prefix="tuning-", dir=os.path.join(ROOT, "build"))
+    cache_dir = tmp.name
+
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    _, losses, *_ = dispatch_run(raw, supports, inputs, "tune", cache_dir)
+    tuning = {fn.__name__: fn.launches for fn in counters}
+    log(f"dispatch path, tuning run: {time.perf_counter() - t0:.1f} s; launches "
+        f"{tuning} (tuning and dispatched calls)")
+    check(losses == ref_losses, f"gather='auto' losses {losses} differ from "
+                                f"gather='pallas' losses {ref_losses}")
+    print_verdicts(cache_dir)
+
+    # The dispatched run: counts from 0, every verdict from the cache file.
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    pipe, losses, y, hs, o = dispatch_run(raw, supports, inputs, "load", cache_dir)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    log(f"dispatch path, from the cache: {time.perf_counter() - t0:.1f} s; launches "
+        f"{launches}")
+    for fn in counters:
+        check(launches[fn.__name__] > 0, f"{fn.__name__} was not launched by the "
+                                         f"dispatched calls")
+    check(losses == ref_losses, f"gather='auto' losses {losses} differ from "
+                                f"gather='pallas' losses {ref_losses}")
+    log(f"dispatch: gather='auto' losses equal gather='pallas' bit for bit over "
+        f"{len(losses)} steps in both runs ({losses[0]:.6f} -> {losses[-1]:.6f})")
+    for name, got, want, atol in (
+            ("diffusion_conv", y, diffusion_conv(x, supports, w, bias, k_hops=K_HOPS), 1e-4),
+            ("linear_scan decode", hs[0][0], linear_scan(*scans[0])[0], 0.0),
+            ("linear_scan prefill", hs[1][0], linear_scan(*scans[1])[0], 0.0),
+            ("flash_attention", o, flash_attention(q, k, v), FLASH_ATOL[torch.bfloat16])):
+        err = float((got.float() - want.float()).abs().max())
+        log(f"dispatch: {name} impl='auto' (kernel) vs plain max_abs_err {err:.3e} "
+            f"(atol {atol})")
+        check(err <= atol, f"{name} through impl='auto' disagrees with its plain version")
+
+    calls = [("gather", (pipe.dataset.series, pipe.batch_of_starts(
+                  pipe.dataplane.epoch_global(0)[0])), {"input_len": HORIZON, "horizon": HORIZON}),
+             ("diffusion_conv", (x, tuple(supports), w, bias),
+              {"k_hops": K_HOPS, "n_supports": len(supports)}),
+             *[("linear_scan", (a, bb, torch.zeros_like(a[:, 0])), {}) for a, bb in scans],
+             ("flash_attention", (q, k, v), {"causal": True})]
+    with autotuning(mode="load", cache_dir=cache_dir):
+        for op, args, static in calls:
+            vd = verdict_for(op, *args, **static)
+            check(vd.source == "cache" and vd.variant == "pallas",
+                  f"{op} verdict not the kernel read back from the cache: {vd}")
+    log(f"dispatch: all {len(calls)} verdicts read back from the cache file under "
+        f"mode='load', each the kernel")
+    tmp.cleanup()
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -658,6 +902,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from repro_torch.kernels.diffusion_conv.kernel import hop_project
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
     from repro_torch.kernels.linear_scan.kernel import linear_scan
     from repro_torch.kernels.window_gather.kernel import window_gather
 
@@ -710,6 +955,19 @@ def main() -> int:
                                      scan_launches, scan_err))
     if args.profile:
         profile_decode(eng)
+    log(f"peak device memory of the serving phases "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del eng
+    torch.cuda.empty_cache()
+
+    flash_err = phase_flash_kernel(rg_cfg)
+    # The measured-dispatch path: tuned, then every count from 0, the path
+    # dispatched from the cache, counts read.
+    torch.cuda.reset_peak_memory_stats()
+    dispatch_launches = phase_dispatch(
+        raw, supports, rg_cfg, (window_gather, hop_project, linear_scan, flash_attention))
+    kernels.append(phase_flash_times(rg_cfg, dispatch_launches["flash_attention"],
+                                     flash_err))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

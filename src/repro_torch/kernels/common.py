@@ -1,6 +1,7 @@
 """Per-device launch defaults for the kernel ops.
 
-A wrapper reads the row of the device its tensors lie on, at call time.
+A wrapper reads the row of the device its tensors lie on, at call time
+(:func:`resolve_backend` reads the call's first tensor, never ambient state).
 The ``"cuda"`` row holds the launch shapes of the hand-written Hopper
 kernels; the ``"cpu"`` row marks that CPU tensors take each kernel's plain
 PyTorch version.  A CUDA tensor always launches the kernel: there is no
@@ -22,6 +23,9 @@ class KernelDefaults:
     ``scan_threads``    threads per block of ``linear_scan``: one thread per
                         (batch, channel); 128 spreads the RG-LRU's 8 x 2,560
                         channels over 160 blocks, more than the 132 SMs.
+    ``block_q/k``       ``flash_attention``'s query and key tile lengths
+                        (square: both 32, 64 or 128).  64 x 64 keeps the f32 tiles
+                        of head_dim 256 in 148,992 bytes of shared memory.
 
     ``hop_project``'s tile (64 node rows per block of 256 threads) is fixed
     in its source.
@@ -30,12 +34,20 @@ class KernelDefaults:
     kernel: bool
     gather_threads: int = 256
     scan_threads: int = 128
+    block_q: int = 64
+    block_k: int = 64
 
 
 _DEFAULTS = {
     "cuda": KernelDefaults(kernel=True),
     "cpu": KernelDefaults(kernel=False),
 }
+
+
+def resolve_backend(tensor: torch.Tensor) -> str:
+    """The row a call tiles for: the device type of its first tensor, read
+    now, per call."""
+    return tensor.device.type
 
 
 def kernel_defaults(device: torch.device | str) -> KernelDefaults:
@@ -45,3 +57,12 @@ def kernel_defaults(device: torch.device | str) -> KernelDefaults:
         return _DEFAULTS[kind]
     except KeyError:
         raise ValueError(f"no kernel defaults for device type {kind!r}") from None
+
+
+def block_candidates(base: int, *, lo: int = 32,
+                     hi: int = 4096) -> tuple[int, ...]:
+    """The autotuner's search space around a :class:`KernelDefaults` launch
+    knob: ``{base/2, base, base*2}`` clamped to ``[lo, hi]``, sorted and
+    deduped (e.g. ``block_q=64 -> (32, 64, 128)``)."""
+    return tuple(sorted({min(max(b, lo), hi)
+                         for b in (base // 2, base, base * 2)}))

@@ -4,6 +4,9 @@
 the hand-written CUDA ``hop_project`` on a CUDA tensor, or its plain version
 on a CPU tensor.  That path is forward-only, as in the JAX package, whose
 Pallas hop has no gradient either: asking it for a gradient raises.
+``impl`` overrides ``use_pallas``: ``"ref"``/``"pallas"`` force a lowering,
+``"auto"`` routes through the measured dispatcher
+(:mod:`repro_torch.kernels.autotune`).
 """
 from __future__ import annotations
 
@@ -13,8 +16,17 @@ from repro_torch.kernels.diffusion_conv.kernel import hop_project
 from repro_torch.kernels.diffusion_conv.ref import diffusion_conv_ref
 
 
-def diffusion_conv(x, supports, w, b, *, k_hops: int, use_pallas: bool = False):
+def diffusion_conv(x, supports, w, b, *, k_hops: int, use_pallas: bool = False,
+                   impl: str | None = None):
     """x: [B, N, C] -> [B, N, H].  See ref.py for the weight layout."""
+    if impl == "auto":
+        from repro_torch.kernels.autotune import dispatch
+        return dispatch("diffusion_conv", x, tuple(supports), w, b,
+                        k_hops=k_hops, n_supports=len(supports))
+    if impl is not None:
+        if impl not in ("ref", "pallas"):
+            raise ValueError(f"impl {impl!r}; expected ref|pallas|auto")
+        use_pallas = impl == "pallas"
     if not use_pallas:
         return diffusion_conv_ref(x, supports, w, b, k_hops=k_hops)
     if torch.is_grad_enabled() and any(

@@ -2,9 +2,10 @@
 
 ``use_pallas=True`` (the JAX package's flag name) runs the hand-written CUDA
 scan on a CUDA tensor, or its plain version on a CPU tensor.  The kernel
-loops to S exactly, so nothing is padded.  The JAX op's tiling knobs
-(``chunk``, ``backend``) and its measured dispatch (``impl="auto"``) wait
-for the autotuner's slice.
+loops to S exactly, so nothing is padded, and the JAX op's tiling knobs
+(``chunk``, ``backend``) have no counterpart.  ``impl`` overrides ``use_pallas``:
+``"ref"``/``"pallas"`` force a lowering, ``"auto"`` routes through the
+measured dispatcher (:mod:`repro_torch.kernels.autotune`).
 """
 from __future__ import annotations
 
@@ -15,11 +16,20 @@ from repro_torch.kernels.linear_scan.ref import linear_scan_ref
 
 
 def linear_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None = None,
-                *, use_pallas: bool = False):
+                *, use_pallas: bool = False, impl: str | None = None):
     """h_t = a_t*h_{t-1} + b_t.  a/b: [B, S, D], h0: [B, D] (zeros if None).
 
     Returns (h_seq [B, S, D], h_last [B, D]).
     """
+    if impl == "auto":
+        from repro_torch.kernels.autotune import dispatch
+        if h0 is None:
+            h0 = torch.zeros((a.shape[0], a.shape[2]), dtype=a.dtype, device=a.device)
+        return dispatch("linear_scan", a, b, h0)
+    if impl is not None:
+        if impl not in ("ref", "pallas"):
+            raise ValueError(f"impl {impl!r}; expected ref|pallas|auto")
+        use_pallas = impl == "pallas"
     if not use_pallas:
         return linear_scan_ref(a, b, h0)
     return _linear_scan_kernel(a, b, h0)

@@ -5,7 +5,9 @@ contiguous series) and restoring the shape afterwards; the CUDA kernel masks
 the ragged row end itself, so nothing is padded.  The batching layer
 (`repro_torch.core.batching`) routes through here when ``use_pallas=True``
 — the JAX package's flag name, which here selects the hand-written CUDA
-kernel.
+kernel.  ``impl`` overrides ``use_pallas``: ``"ref"``/``"pallas"`` force a
+lowering, ``"auto"`` routes through the measured dispatcher
+(:mod:`repro_torch.kernels.autotune`).
 """
 from __future__ import annotations
 
@@ -16,8 +18,15 @@ from repro_torch.kernels.window_gather.ref import window_gather_ref
 
 
 def window_gather(series: torch.Tensor, starts: torch.Tensor, *, span: int,
-                  use_pallas: bool = False) -> torch.Tensor:
+                  use_pallas: bool = False, impl: str | None = None) -> torch.Tensor:
     """series: [T, ...], starts: [B] -> [B, span, ...]."""
+    if impl == "auto":
+        from repro_torch.kernels.autotune import dispatch
+        return dispatch("window_gather", series, starts, span=span)
+    if impl is not None:
+        if impl not in ("ref", "pallas"):
+            raise ValueError(f"impl {impl!r}; expected ref|pallas|auto")
+        use_pallas = impl == "pallas"
     if not use_pallas:
         return window_gather_ref(series, starts, span=span)
     t = series.shape[0]

@@ -33,7 +33,7 @@ class PipelineConfig:
 
     batch_per_rank: int = 8
     placement: Placement = Placement.REPLICATED
-    gather: str = "slice"  # slice | take | fused | pallas
+    gather: str = "slice"  # slice | take | fused | pallas | auto
     seed: int = 0
     adam: AdamConfig = AdamConfig()
     schedule: Callable[[Any], Any] | None = None  # step -> lr; None = adam.lr

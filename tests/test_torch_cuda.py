@@ -9,11 +9,16 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import autotune
+from repro_torch.kernels.diffusion_conv import diffusion_conv
 from repro_torch.kernels.diffusion_conv.kernel import hop_project, hop_project_plain
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.linear_scan import kernel as ls_kernel
 from repro_torch.kernels.linear_scan import linear_scan, linear_scan_ref
 from repro_torch.kernels.window_gather import window_gather
 from repro_torch.kernels.window_gather import kernel as wg_kernel
+from repro_torch.pipeline.gathers import resolve_gather
 
 GATHER_SHAPES = [  # tests/test_kernels.py's window_gather cases, and two more
     (64, (24, 2), 6, 8, np.float32),
@@ -130,3 +135,175 @@ def test_cuda_linear_scan_rejects_what_it_cannot_take(cuda):
         linear_scan(a, a.bfloat16(), use_pallas=True)
     with pytest.raises(ValueError, match="h0 must be"):
         linear_scan(a, a, torch.zeros(2, 5, device=cuda), use_pallas=True)
+
+
+# ----------------------------------------------------------- flash_attention
+FLASH_CASES = [  # (B, S, H, Hkv, D, dtype, causal, (block_q, block_k) or None)
+    (2, 512, 10, 1, 256, torch.bfloat16, True, None),   # recurrentgemma-2b prompts
+    (1, 512, 8, 2, 64, torch.float32, True, None),      # the JAX kernels bench shape
+    (2, 256, 8, 4, 32, torch.float32, True, (64, 64)),
+    (1, 512, 4, 1, 64, torch.float32, True, (128, 128)),  # MQA
+    (2, 300, 6, 6, 16, torch.float32, True, (128, 128)),   # ragged S, H = Hkv
+    (1, 128, 20, 20, 128, torch.float32, True, (128, 128)),
+    (2, 192, 8, 2, 32, torch.float32, True, (32, 32)),
+    (2, 100, 4, 2, 16, torch.float32, False, (64, 64)),   # non-causal, ragged S
+    (1, 300, 2, 1, 256, torch.float32, False, (32, 32)),
+    (1, 300, 4, 2, 256, torch.bfloat16, False, (32, 32)),
+    (2, 77, 4, 4, 120, torch.float32, True, (64, 64)),    # h2o-danube3's head dim
+    (3, 33, 2, 1, 8, torch.float32, True, (32, 32)),
+    (1, 1, 4, 2, 64, torch.float32, True, None),          # one token
+    (1, 640, 10, 1, 256, torch.bfloat16, True, (64, 64)),
+]
+# tests/test_flash_attention.py's tolerances: f32 sums in another order;
+# bf16 outputs, and the kernel rounds p to bf16 before P·V as the JAX kernel does.
+FLASH_ATOL = {torch.float32: 5e-5, torch.bfloat16: 3e-2}
+
+
+def _qkv(rng, b, s, h, kv, d, dtype, device, s_kv=None):
+    s_kv = s if s_kv is None else s_kv
+    return tuple(torch.as_tensor(rng.standard_normal(shape).astype(np.float32))
+                 .to(device, dtype)
+                 for shape in ((b, s, h, d), (b, s_kv, kv, d), (b, s_kv, kv, d)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,kv,d,dtype,causal,blocks", FLASH_CASES)
+def test_cuda_flash_attention_matches_plain(cuda, b, s, h, kv, d, dtype, causal, blocks):
+    q, k, v = _qkv(np.random.default_rng(5), b, s, h, kv, d, dtype, cuda)
+    bq, bk = blocks or (None, None)
+    before = fa_kernel.flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, use_pallas=True, block_q=bq, block_k=bk)
+    torch.cuda.synchronize()
+    assert fa_kernel.flash_attention.launches == before + 1
+    want = flash_attention(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == (b, s, h, d) and got.is_contiguous()
+    torch.testing.assert_close(got.float(), want.float(), atol=FLASH_ATOL[dtype], rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_kernel_aligns_unequal_lengths_at_zero(cuda, causal):
+    """Sq != Skv at the kernel level follows the plain version's top-left
+    alignment; the op itself takes equal lengths only."""
+    q, k, v = _qkv(np.random.default_rng(6), 2, 70, 4, 2, 64, torch.float32, cuda, s_kv=150)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    got = fa_kernel.flash_attention(qt, kt, vt, causal=causal)
+    torch.testing.assert_close(got, flash_attention_ref(qt, kt, vt, causal=causal),
+                               atol=5e-5, rtol=0)
+    with pytest.raises(ValueError, match="equal query and key lengths"):
+        flash_attention(q, k, v, use_pallas=True)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_rejects_what_it_cannot_take(cuda):
+    q, k, v = _qkv(np.random.default_rng(7), 1, 64, 4, 2, 64, torch.float32, cuda)
+    with pytest.raises(ValueError, match="must be"):
+        flash_attention(q.double(), k.double(), v.double(), use_pallas=True)
+    with pytest.raises(ValueError, match="tiles"):
+        flash_attention(q, k, v, use_pallas=True, block_q=96, block_k=96)
+    with pytest.raises(ValueError, match="square"):
+        flash_attention(q, k, v, use_pallas=True, block_q=128, block_k=64)
+    big = torch.zeros(1, 8, 2, 512, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(big, big, big, use_pallas=True)
+    wide = _qkv(np.random.default_rng(7), 1, 64, 4, 2, 256, torch.float32, cuda)
+    with pytest.raises(ValueError, match="tiles"):  # 330,752 bytes of shared memory
+        flash_attention(*wide, use_pallas=True, block_q=128, block_k=128)
+
+
+# ------------------------------------------------------- measured dispatch
+def _auto_cases(cuda):
+    rng = np.random.default_rng(8)
+
+    def t(*shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+
+    sup = tuple(torch.as_tensor(_support(rng, 40)).to(cuda) for _ in range(2))
+    x, w, bias = t(4, 40, 66), t(5 * 66, 64) / 8, t(64)
+    series = t(300, 24, 2)
+    starts = torch.as_tensor(rng.integers(0, 276, 6).astype(np.int32)).to(cuda)
+    q, k, v = _qkv(rng, 2, 96, 10, 1, 256, torch.bfloat16, cuda)
+    a = torch.as_tensor(rng.uniform(0.7, 1.0, (3, 40, 70)).astype(np.float32)).to(cuda)
+    bb = t(3, 40, 70)
+    gathers = {"auto": resolve_gather("auto"), "ref": resolve_gather("slice")}
+    return {  # op -> (call(impl), atol against the plain version)
+        "window_gather": (lambda impl: window_gather(series, starts, span=24, impl=impl), 0),
+        "gather": (lambda impl: gathers[impl](series, starts, input_len=12, horizon=12), 0),
+        "linear_scan": (lambda impl: linear_scan(a, bb, impl=impl), 1e-3),
+        "flash_attention": (lambda impl: flash_attention(q, k, v, impl=impl), 3e-2),
+        "diffusion_conv": (lambda impl: diffusion_conv(x, sup, w, bias, k_hops=2,
+                                                       impl=impl), 1e-4),
+    }
+
+
+@pytest.mark.cuda
+def test_cuda_auto_tunes_every_kernel_and_matches_plain(cuda, tmp_path):
+    """impl="auto" on CUDA tensors: only the kernel's launch shapes compete,
+    each is measured and admitted, the verdict is the kernel, and the
+    dispatched result equals the plain version."""
+    with autotune.autotuning(mode="tune", cache_dir=str(tmp_path), warmup=0, iters=2):
+        for op, (call, atol) in _auto_cases(cuda).items():
+            got, want = call("auto"), call("ref")
+            for g, w in zip(autotune._leaves(got), autotune._leaves(want)):
+                torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=atol)
+    entries = autotune.load_cache(autotune.cache_path("cuda", str(tmp_path)), "cuda")
+    assert sorted(key.split("|")[0] for key in entries) == sorted(_auto_cases(cuda))
+    for key, entry in entries.items():
+        assert entry["variant"] == "pallas", entry
+        assert entry["candidates"] and all(c.startswith("pallas")
+                                           for c in entry["candidates"]), entry
+        assert all("rejected" not in c for c in entry["candidates"].values()), entry
+
+
+@pytest.mark.cuda
+def test_cuda_wrong_kernel_raises_when_no_launch_shape_passes(cuda, tmp_path, monkeypatch):
+    """On the card a rejected kernel leaves no candidate: tuning raises
+    rather than dispatching the plain version."""
+    base = autotune._OPS["window_gather"]
+
+    def off_by_one(static, params):
+        return lambda series, starts: window_gather(series, starts + 1, span=static["span"],
+                                                    use_pallas=True)
+
+    monkeypatch.setitem(autotune._OPS, "window_gather", autotune.OpSpec(
+        name="window_gather", describe=base.describe, synth=base.synth, default=base.default,
+        variants=lambda: (base.variants()[0], autotune.Variant("pallas", off_by_one,
+                                                               kernel=True))))
+    series = torch.zeros(64, 8, device=cuda).normal_()
+    starts = torch.tensor([0, 3, 9], dtype=torch.int32, device=cuda)
+    with autotune.autotuning(mode="tune", cache_dir=str(tmp_path), warmup=0, iters=1):
+        with pytest.raises(RuntimeError, match="no launch shape"):
+            window_gather(series, starts, span=6, impl="auto")
+
+
+@pytest.mark.cuda
+def test_cuda_cached_plain_verdict_is_stale(cuda, tmp_path, caplog):
+    """A cache entry naming the plain version is not a candidate on the
+    card: it is logged as stale and the kernel runs."""
+    q, k, v = _qkv(np.random.default_rng(10), 1, 64, 4, 2, 32, torch.float32, cuda)
+    key = autotune.bucket_key("flash_attention", "cuda",
+                              {"b": 1, "s": 64, "h": 4, "hkv": 2, "d": 32}, q.dtype)
+    autotune.save_cache(autotune.cache_path("cuda", str(tmp_path)), "cuda",
+                        {key: {"variant": "ref", "params": {}}})
+    before = fa_kernel.flash_attention.launches
+    with autotune.autotuning(mode="load", cache_dir=str(tmp_path)):
+        got = flash_attention(q, k, v, impl="auto")
+    assert fa_kernel.flash_attention.launches == before + 1
+    assert "stale cache entry" in caplog.text
+    torch.testing.assert_close(got, flash_attention(q, k, v), atol=5e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_failing_kernel_variant_raises_instead_of_being_rejected(cuda, tmp_path,
+                                                                     monkeypatch):
+    def broken():
+        raise RuntimeError("kernel library did not build")
+
+    monkeypatch.setattr(fa_kernel, "_entry", broken)
+    q, k, v = _qkv(np.random.default_rng(9), 1, 64, 4, 2, 32, torch.float32, cuda)
+    with autotune.autotuning(mode="tune", cache_dir=str(tmp_path), warmup=0, iters=1):
+        with pytest.raises(RuntimeError, match="did not build"):
+            flash_attention(q, k, v, impl="auto")
+    with autotune.autotuning(mode="off"):  # the card's default is the kernel
+        with pytest.raises(RuntimeError, match="did not build"):
+            flash_attention(q, k, v, impl="auto")
