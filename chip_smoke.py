@@ -36,13 +36,15 @@ before a path and read just after it:
 
 Phases: device (card name and power limit; TF32 off for matmuls and cuDNN);
 build (the CUDA kernels compiled from ``src/repro_torch``, one nvcc per
-source in parallel); kernels (each kernel against its plain PyTorch version
-at the shapes its path gives it: window_gather and linear_scan bit-exact,
-hop_project within fp32 tolerance, flash_attention within f32 atol 5e-5 and
-bf16 atol 3e-2, plus edge cases); the three paths; times (CUDA events,
-medians; each kernel's device time beside its bound from the H100
-datasheet, its plain version and a one-call PyTorch yardstick where one
-exists).
+source in parallel, and each library's count of tensor-core ``HMMA``
+instructions from ``cuobjdump -sass``: flash_attention's bf16 kernel and
+hop_project run on the tensor cores, so both counts must be above zero);
+kernels (each kernel against its plain PyTorch version at the shapes its
+path gives it: window_gather and linear_scan bit-exact, hop_project (3xTF32)
+within fp32 tolerance, flash_attention within f32 atol 5e-5 and bf16 atol
+3e-2, plus edge cases); the three paths; times (CUDA events, medians; each
+kernel's device time beside its bound from the H100 datasheet, its plain
+version and a one-call PyTorch yardstick where one exists).
 
 Cuts: the ST-GNN series has 8,640 entries (30 days of 5-minute bins)
 instead of PeMS-All-LA's 105,120, and the train split is cut to the 20
@@ -61,8 +63,10 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib.util
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -76,10 +80,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # H100 SXM datasheet peaks (dense, 700 W): HBM3 bandwidth, fp32 on CUDA
-# cores, bf16 on the tensor cores.
+# cores, TF32 and bf16 on the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
+# The libraries whose kernels must run on the tensor cores.
+TENSOR_CORE_LIBS = ("flash_attention", "hop_project")
 
 NODES, FEATURES, HIDDEN, K_HOPS, HORIZON = 2_716, 2, 64, 2, 12
 ENTRIES = 8_640  # cut from 105,120: 30 days of 5-minute bins
@@ -155,6 +162,20 @@ def phase_device() -> str:
     return name
 
 
+def cuobjdump() -> str:
+    """The CUDA toolkit's cuobjdump, or the copy Triton's package carries."""
+    paths = [shutil.which("cuobjdump"),
+             os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")]
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.origin:
+        paths.append(os.path.join(os.path.dirname(spec.origin), "backends", "nvidia",
+                                  "bin", "cuobjdump"))
+    for path in paths:
+        if path and os.path.isfile(path):
+            return path
+    raise RuntimeError(f"cuobjdump not found (tried {paths})")
+
+
 def phase_build() -> None:
     from repro_torch.kernels import build
 
@@ -166,6 +187,14 @@ def phase_build() -> None:
         for line in text.splitlines():
             if "Used" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    tool = cuobjdump()
+    for name in build.SOURCES:
+        sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
+                              capture_output=True, text=True, check=True).stdout
+        hmma = sum("HMMA" in line for line in sass.splitlines())
+        log(f"build: {name}: {hmma} HMMA (tensor-core) instructions in its SASS")
+        if name in TENSOR_CORE_LIBS:
+            check(hmma > 0, f"{name} has no tensor-core instruction")
 
 
 def graph():
@@ -402,6 +431,8 @@ def phase_times(pipe, fpipe, state, supports, errs) -> list[dict]:
 
     # hop_project at both main-path shapes (H = 128 for the ru gate, 64 for
     # the c gate: equal launch counts on the path), reported as their mean.
+    # Its bound: three TF32 products per fp32 product (the fastest route on
+    # this card that keeps fp32 accuracy) at the TF32 peak, or the bytes.
     n, c = NODES, FEATURES + HIDDEN
     s = supports[0]
     h_ms, h_plain, h_lib, h_bound = [], [], [], []
@@ -419,10 +450,11 @@ def phase_times(pipe, fpipe, state, supports, errs) -> list[dict]:
                                    device_only=True))
         flops = 2 * n * n * BATCH * c + 2 * n * BATCH * c * h
         nbytes = 4 * (n * n + 2 * n * BATCH * c + 2 * n * BATCH * h + c * h)
-        h_bound.append(max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3)
+        h_bound.append(max(3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3)
+        fp32_bound = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
         log(f"time: hop_project H={h}: {h_ms[-1]:.4f} ms, plain {h_plain[-1]:.4f} ms, "
-            f"torch.matmul S@Z {h_lib[-1]:.4f} ms, bound {h_bound[-1]:.4f} ms "
-            f"({flops / h_ms[-1] / 1e9:.1f} TFLOP/s)")
+            f"torch.matmul S@Z {h_lib[-1]:.4f} ms, bound {h_bound[-1]:.4f} ms (3xTF32 operations; {fp32_bound:.4f} ms by fp32 "
+            f"on CUDA cores) ({flops / h_ms[-1] / 1e9:.1f} fp32-equivalent TFLOP/s)")
     log(f"time: window_gather {g_ms:.4f} ms, plain {g_plain:.4f} ms, "
         f"index_select {g_lib:.4f} ms, bound {g_bound:.4f} ms "
         f"({g_bytes / g_ms / 1e6:.1f} GB/s)")
@@ -716,6 +748,18 @@ def phase_flash_kernel(rg_cfg) -> float:
               ("MQA", (1, 256, 8, 1, 128), f32, True),
               ("H = Hkv", (2, 128, 6, 6, 32), f32, True)]
     cases += [(f"D = {dd}", (2, 200, 4, 2, dd), f32, True) for dd in (16, 64, 128, 256)]
+    # The bf16 tensor-core kernel's edges: GQA, MQA, H = Hkv, ragged S, one
+    # token, and head dims that pad (120), swizzle narrowly (16, 32) or take
+    # the element loads (33).
+    cases += [("bf16 GQA 8:2", (1, 512, 8, 2, 64), bf16, True),
+              ("bf16 GQA 8:2, non-causal", (1, 512, 8, 2, 64), bf16, False),
+              ("bf16 non-causal, ragged S=100", (2, 100, 4, 2, 128), bf16, False),
+              ("bf16 ragged S=33, MQA", (3, 33, 2, 1, 64), bf16, True),
+              ("bf16 MQA", (1, 300, 4, 1, 256), bf16, True),
+              ("bf16 H = Hkv", (2, 128, 6, 6, 128), bf16, True),
+              ("bf16 one token", (1, 1, 4, 2, 64), bf16, True)]
+    cases += [(f"bf16 D = {dd}", (2, 200, 4, 2, dd), bf16, dd != 32)
+              for dd in (16, 32, 33, 64, 120, 128, 256)]
     err_main = None
     for label, (b, s, nh, nkv, dd), dtype, causal in cases:
         q, k, v = flash_inputs(gen, b, s, nh, nkv, dd, dtype)

@@ -3,11 +3,12 @@
 The port of the JAX package's measured dispatch.  Every op declares its
 candidate lowerings (**variants**): the plain PyTorch reference, the other
 plain alternatives (the ``take`` / ``fused`` gathers), and the hand-written
-kernel over the launch shapes it really takes (the flash tiles; the other
-kernels launch at the fixed shapes of the ``"cuda"`` row, so their grid has
-one entry).  The **tuner** synthesizes inputs at the call's **shape bucket**
-(the power-of-two envelope of every dimension), admits only candidates whose
-VALUES match the reference, times the admitted ones and keeps the fastest.
+kernel over the launch shapes it really takes (the flash tiles of the
+call's dtype; the other kernels launch at the fixed shapes of the
+``"cuda"`` row, so their grid has one entry).  The **tuner** synthesizes
+inputs at the call's **shape bucket** (the power-of-two envelope of every
+dimension), admits only candidates whose VALUES match the reference, times
+the admitted ones and keeps the fastest.
 Verdicts are keyed ``op|backend|bucket|dtype`` and persisted to
 ``TUNING_<backend>.json``, written atomically and loaded defensively (a
 missing, torn or foreign-backend file reads as empty).
@@ -232,11 +233,11 @@ def save_cache(path: str, backend: str, entries: dict) -> None:
 class Variant:
     """One candidate lowering of an op.
 
-    ``build(static, params) -> fn(*tensors)``.  ``grid(bucket_dims, kd) ->
-    (params, ...)`` is the launch-shape search space, derived from
+    ``build(static, params) -> fn(*tensors)``.  ``grid(bucket_dims, kd,
+    dtype) -> (params, ...)`` is the launch-shape search space, derived from
     :class:`KernelDefaults` and limited to what the kernel takes at the
-    bucket; on the CPU a kernel variant runs its plain version, has no
-    knobs, and its grid is ``({},)``.  ``kernel`` marks the hand-written
+    bucket in ``dtype``; on the CPU a kernel variant runs its plain version,
+    has no knobs, and its grid is ``({},)``.  ``kernel`` marks the hand-written
     kernel, the only candidate on a CUDA tensor.  ``exact`` selects the
     admission check against the reference: bit-equality for pure data
     movement, the float32 tolerance of the module docstring for float
@@ -245,7 +246,7 @@ class Variant:
 
     name: str
     build: Callable[[dict, dict], Callable]
-    grid: Callable[[dict, KernelDefaults], tuple] = lambda dims, kd: ({},)
+    grid: Callable[[dict, KernelDefaults, Any], tuple] = lambda dims, kd, dtype: ({},)
     kernel: bool = False
     exact: bool = True
     atol: float = 1e-3
@@ -390,7 +391,7 @@ def _tune(spec: OpSpec, device: torch.device, dims: dict, static: dict, dtype,
         ref_out = spec.variants()[0].build(static, {})(*sargs)
         for v in _candidates(spec, device.type):
             slack = 0.0 if v.slack is None else v.slack(sargs, static)
-            for params in v.grid(bdims, kd):
+            for params in v.grid(bdims, kd, dtype):
                 label = _label(v.name, params)
                 fn = v.build(static, params)
                 why, stats = _admission(ref_out, fn(*sargs), v, slack)
@@ -480,7 +481,8 @@ def dispatch(op: str, *args, **static):
     by_name = {v.name: v for v in _candidates(spec, device.type)}
     var = by_name.get(verdict.variant)
     if var is None or (verdict.source == "cache" and verdict.params not in var.grid(
-            {k: pow2_bucket(n) for k, n in dims.items()}, kernel_defaults(device))):
+            {k: pow2_bucket(n) for k, n in dims.items()}, kernel_defaults(device),
+            dtype)):
         name, params = spec.default(device.type, dims)
         _LOG.warning("autotune %s: stale cache entry %s for %s; dispatching "
                      "the default %s", op, _label(verdict.variant, verdict.params),
@@ -697,19 +699,21 @@ def _fa_synth(bdims, static, dtype, device):
             _randn((b, s, hkv, d), dtype, gen, device))
 
 
-def _fa_grid(dims: dict, kd: KernelDefaults) -> tuple:
-    """Square tiles around the default that fit shared memory at the
-    bucket's head dim; a tile of twice the sequence or more is skipped (the
-    half tile already covers the sequence)."""
-    from repro_torch.kernels.flash_attention.kernel import MAX_D, fits
+def _fa_grid(dims: dict, kd: KernelDefaults, dtype) -> tuple:
+    """Square tiles of the dtype's kernel (float32: around the default;
+    bfloat16: its one tile) that fit shared memory at the bucket's head dim;
+    a tile of twice the sequence or more is skipped (the half tile already
+    covers the sequence)."""
+    from repro_torch.kernels.flash_attention.kernel import BF16_BLOCK, MAX_D, fits
     if not kd.kernel:
         return ({},)
     if dims["d"] > MAX_D:
         return ()
-    blocks = block_candidates(kd.block_q, hi=128)
+    blocks = ((BF16_BLOCK,) if dtype == torch.bfloat16
+              else block_candidates(kd.block_q, hi=128))
     return tuple({"block_q": b, "block_k": b} for b in blocks
                  if (b == blocks[0] or b // 2 < dims["s"])
-                 and fits(b, b, dims["d"]))
+                 and fits(b, b, dims["d"], dtype))
 
 
 def _fa_slack(args, static):
@@ -778,7 +782,7 @@ def _dc_synth(bdims, static, dtype, device):
     return x, tuple(supports), w, torch.zeros((h,), dtype=dtype, device=device)
 
 
-def _dc_grid(dims: dict, kd: KernelDefaults) -> tuple:
+def _dc_grid(dims: dict, kd: KernelDefaults, dtype) -> tuple:
     """One entry (the hop tile is fixed in its source) where the kernel
     takes the bucket's feature dim."""
     from repro_torch.kernels.diffusion_conv.kernel import MAX_C

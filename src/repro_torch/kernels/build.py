@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface (``build/kernels/<name>-<hash>.so`` under the checkout),
 for ``sm_90a``.  The libraries are built at first use; :func:`build` starts
 one ``nvcc`` per source, all at once, and waits for them together.  The file
-name carries a hash of the source and the flags, so an edit rebuilds and an
-unchanged source is reused.
+name carries a hash of the source, of every shared header ``csrc/*.cuh`` and
+of the flags, so an edit to any of them rebuilds and an unchanged source is
+reused.
 """
 from __future__ import annotations
 
@@ -37,9 +38,11 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     if name not in SOURCES:
         raise ValueError(f"unknown kernel source {name!r}; known: {SOURCES}")
-    digest = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return _BUILD / f"{name}-{digest}.so"
+    digest = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return _BUILD / f"{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(names=SOURCES) -> dict[str, str]:

@@ -24,10 +24,11 @@ class KernelDefaults:
                         (batch, channel); 128 spreads the RG-LRU's 8 x 2,560
                         channels over 160 blocks, more than the 132 SMs.
     ``block_q/k``       ``flash_attention``'s query and key tile lengths
-                        (square: both 32, 64 or 128).  64 x 64 keeps the f32 tiles
+                        (square: both 32, 64 or 128 in float32; the bfloat16
+                        kernel takes 64 only).  64 x 64 keeps the f32 tiles
                         of head_dim 256 in 148,992 bytes of shared memory.
 
-    ``hop_project``'s tile (64 node rows per block of 256 threads) is fixed
+    ``hop_project``'s tile (64 node rows per block of 128 threads) is fixed
     in its source.
     """
 

@@ -1,0 +1,114 @@
+// Thin inline-PTX wrappers over the warp-level tensor-core instructions that
+// flash_attention.cu and hop_project.cu share (sm_80 and later; built here
+// for sm_90a).
+//
+// Fragment layouts of one warp (lane = 4·g + t, g = lane / 4, t = lane % 4),
+// as the PTX ISA defines them for mma.sync:
+//   m16n8k16 bf16  A 16x16 (row): a0 (g, 2t..2t+1), a1 (g+8, 2t..2t+1),
+//                                 a2 (g, 2t+8..2t+9), a3 (g+8, 2t+8..2t+9)
+//                  B 16x8 (col):  b0 (k 2t..2t+1, n g), b1 (k 2t+8..2t+9, n g)
+//   m16n8k8 tf32   A 16x8 (row):  a0 (g, t), a1 (g+8, t), a2 (g, t+4),
+//                                 a3 (g+8, t+4)
+//                  B 8x8 (col):   b0 (k t, n g), b1 (k t+4, n g)
+//   C/D 16x8 f32 (both):          d0, d1 (g, 2t..2t+1), d2, d3 (g+8, 2t..2t+1)
+// The low 16 bits of a packed bf16 pair hold the lower column (or k) index.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cstdint>
+
+namespace mma {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The products are plain (not volatile) asm: they touch registers only, so
+// the compiler may schedule them around the loads that feed them.
+
+// d += a · b, bf16 operands, f32 accumulator.
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a · b, tf32 operands (f32 bit patterns with the low 13 bits zero),
+// f32 accumulator.
+__device__ __forceinline__ void mma_tf32_1688(float (&d)[4], const uint32_t (&a)[4],
+                                              const uint32_t (&b)[2]) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Four 8x8 b16 matrices from shared memory: lanes 8i..8i+7 give the 16-byte
+// row addresses of matrix i, and register i receives matrix i's
+// (row g, columns 2t..2t+1).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// As ldmatrix_x4, transposed: register i receives matrix i's
+// (rows 2t..2t+1, column g).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// Asynchronous global -> shared copies.  The first `src_bytes` bytes come
+// from `src`, the rest of the destination is zero-filled; with src_bytes = 0
+// nothing is read.  16-byte copies bypass L1 (.cg); 4-byte ones go through it.
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Round to TF32 (10 mantissa bits), to nearest with ties away from zero:
+// bit for bit what cvt.rna.tf32.f32 gives for finite x.  Adding half a TF32
+// ulp to the magnitude bits and dropping the low 13 takes two integer
+// operations, cheaper on this card than the conversion instruction.
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x ≈ hi + lo with hi = tf32(x) and lo = tf32(x - hi): the operands of the
+// 3xTF32 product a·b ≈ a_hi·b_hi + a_hi·b_lo + a_lo·b_hi.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+// Two floats as a bf16 pair (round to nearest even), `lo` in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+}  // namespace mma

@@ -8,8 +8,10 @@ its projection,
     Y  += Z_k @ W_k              W_k [C, H], Y [N, B, H]
 
 :func:`hop_project_plain` is its plain PyTorch version: a CPU tensor takes
-it, a CUDA tensor launches the kernel or raises.  The kernel has no
-backward.  ``hop_project.launches`` counts the kernel's launches.
+it, a CUDA tensor launches the kernel or raises.  The kernel runs on the
+tensor cores in 3xTF32 (three TF32 products per fp32 product, fp32
+accumulation), which keeps fp32 accuracy.  It has no backward.
+``hop_project.launches`` counts the kernel's launches.
 """
 from __future__ import annotations
 

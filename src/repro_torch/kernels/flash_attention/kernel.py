@@ -3,7 +3,8 @@
 Replaces the Pallas TPU kernel ``flash_attention`` of the JAX package
 (``repro/kernels/flash_attention/kernel.py``): forward attention with an
 online softmax, grouped-query heads read in place, and keys past Skv masked
-in every mode.  Its plain PyTorch version is
+in every mode.  bfloat16 runs on the tensor cores (``mma.sync``), float32 on
+the CUDA cores; each dtype has its own tiles.  Its plain PyTorch version is
 :func:`~repro_torch.kernels.flash_attention.ref.flash_attention_ref`: a CPU
 tensor takes it, a CUDA tensor launches the kernel or raises.
 ``flash_attention.launches`` counts the kernel's launches.
@@ -20,30 +21,46 @@ from repro_torch.kernels.common import kernel_defaults
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
-#: Tile lengths the kernel is compiled for, each square (block_q == block_k).
+#: float32 tiles the kernel is compiled for, each square (block_q == block_k).
 BLOCKS = (32, 64, 128)
-#: Widest head dim the kernel's register tile covers.
+#: The bfloat16 kernel's one tile (block_q == block_k == 64): 8 warps, four
+#: of 16 query rows in each of two key groups over alternate key tiles.
+BF16_BLOCK = 64
+#: Widest head dim the kernels cover.
 MAX_D = 256
 #: Shared memory a block may opt into on sm_90 (H100, H200).
 MAX_SMEM = 232_448
 
 
-def smem_bytes(block_q: int, block_k: int, d: int) -> int:
-    """Shared memory the kernel asks for: f32 Q and K/V tiles of
-    ``16·CN + 1`` columns (D padded to a power-of-two tile, at least 16),
-    the key-major P tile and three per-row vectors."""
+def _padded_d(d: int) -> int:
+    """D padded to the kernels' column tile: a power of two, at least 16."""
     dp = 16
     while dp < d:
         dp *= 2
+    return dp
+
+
+def smem_bytes(block_q: int, block_k: int, d: int,
+               dtype: torch.dtype = torch.float32) -> int:
+    """Shared memory the kernel asks for.  float32: Q and K/V tiles of
+    ``Dp + 1`` columns, the key-major P tile and three per-row vectors.
+    bfloat16: a Q tile and the two key groups' K and V tiles, of ``Dp``
+    columns.  ``Dp`` is D padded to a power of two, at least 16."""
+    dp = _padded_d(d)
+    if dtype == torch.bfloat16:
+        return 2 * (block_q + 2 * 2 * block_k) * dp
     return 4 * ((block_q + block_k) * (dp + 1) + block_k * (block_q + 1)
                 + 3 * block_q)
 
 
-def fits(block_q: int, block_k: int, d: int) -> bool:
-    """Whether the tiles are compiled (square, in ``BLOCKS``) and fit one
-    block's shared memory."""
-    return (block_q == block_k and block_q in BLOCKS
-            and smem_bytes(block_q, block_k, d) <= MAX_SMEM)
+def fits(block_q: int, block_k: int, d: int,
+         dtype: torch.dtype = torch.float32) -> bool:
+    """Whether the tiles are compiled for ``dtype`` (square; float32 in
+    ``BLOCKS``, bfloat16 ``BF16_BLOCK``) and fit one block's shared
+    memory."""
+    compiled = BLOCKS if dtype == torch.float32 else (BF16_BLOCK,)
+    return (block_q == block_k and block_q in compiled
+            and smem_bytes(block_q, block_k, d, dtype) <= MAX_SMEM)
 
 
 def _entry():
@@ -93,11 +110,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not 0 < d <= MAX_D or skv == 0:
         raise ValueError(f"flash_attention: head dim {d} outside [1, {MAX_D}] "
                          f"or no keys (Skv = {skv})")
-    if not fits(bq, bk, d):
+    if not fits(bq, bk, d, q.dtype):
+        shape = (f"({BF16_BLOCK}, {BF16_BLOCK})" if q.dtype == torch.bfloat16
+                 else f"square, in {BLOCKS}")
         raise ValueError(f"flash_attention: tiles ({bq}, {bk}) at head dim {d} "
-                         f"need {smem_bytes(bq, bk, d)} bytes of shared memory "
-                         f"(at most {MAX_SMEM}); tiles must be square, "
-                         f"in {BLOCKS}")
+                         f"need {smem_bytes(bq, bk, d, q.dtype)} bytes of shared "
+                         f"memory (at most {MAX_SMEM}); {q.dtype} tiles must be "
+                         f"{shape}")
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     if out.numel() == 0:
         return out

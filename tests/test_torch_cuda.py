@@ -67,17 +67,25 @@ def test_cuda_window_gather_matches_plain(cuda, t, trail, span, b, dtype):
     assert torch.equal(got, want)
 
 
+HOP_SHAPES = [  # (N, B, C, H)
+    (24, 2, 10, 8), (50, 3, 66, 128), (129, 4, 128, 64), (300, 5, 1, 3), (2716, 2, 66, 64),
+    # C not a multiple of 8, B not a multiple of the batch elements per block
+    (2716, 32, 66, 128), (2716, 7, 66, 64), (129, 3, 128, 64),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,b,c,h", [(24, 2, 10, 8), (50, 3, 66, 128), (129, 4, 128, 64),
-                                     (300, 5, 1, 3), (2716, 2, 66, 64)])
+@pytest.mark.parametrize("n,b,c,h", HOP_SHAPES)
 def test_cuda_hop_project_matches_plain(cuda, n, b, c, h):
     rng = np.random.default_rng(2)
     s = torch.as_tensor(_support(rng, n)).to(cuda)
     z, w, y = (torch.as_tensor(rng.standard_normal(shape).astype(np.float32)).to(cuda)
                for shape in ((n, b, c), (c, h), (n, b, h)))
     w = w / c ** 0.5  # the model's init scale
+    before = hop_project.launches
     got = hop_project(s, z, w, y)
     torch.cuda.synchronize()
+    assert hop_project.launches == before + 1
     want = hop_project_plain(s, z, w, y)
     for a, e in zip(got, want):
         torch.testing.assert_close(a, e, atol=1e-4, rtol=1e-4)
@@ -148,11 +156,27 @@ FLASH_CASES = [  # (B, S, H, Hkv, D, dtype, causal, (block_q, block_k) or None)
     (2, 192, 8, 2, 32, torch.float32, True, (32, 32)),
     (2, 100, 4, 2, 16, torch.float32, False, (64, 64)),   # non-causal, ragged S
     (1, 300, 2, 1, 256, torch.float32, False, (32, 32)),
-    (1, 300, 4, 2, 256, torch.bfloat16, False, (32, 32)),
+    (1, 300, 4, 2, 256, torch.bfloat16, False, (64, 64)),
     (2, 77, 4, 4, 120, torch.float32, True, (64, 64)),    # h2o-danube3's head dim
     (3, 33, 2, 1, 8, torch.float32, True, (32, 32)),
     (1, 1, 4, 2, 64, torch.float32, True, None),          # one token
     (1, 640, 10, 1, 256, torch.bfloat16, True, (64, 64)),
+    # the bf16 tensor-core kernel
+    (1, 512, 8, 2, 64, torch.bfloat16, True, None),        # GQA 8:2
+    (1, 512, 8, 2, 64, torch.bfloat16, False, (64, 64)),
+    (2, 77, 4, 4, 120, torch.bfloat16, True, None),        # D 120, H = Hkv
+    (2, 100, 4, 2, 128, torch.bfloat16, False, None),      # non-causal, ragged S
+    (2, 100, 4, 2, 128, torch.bfloat16, True, None),
+    (3, 33, 2, 1, 64, torch.bfloat16, True, None),         # ragged S, MQA
+    (3, 33, 2, 1, 256, torch.bfloat16, False, None),
+    (1, 300, 4, 1, 256, torch.bfloat16, True, None),       # MQA
+    (2, 300, 6, 6, 128, torch.bfloat16, True, None),       # H = Hkv
+    (1, 1, 4, 2, 64, torch.bfloat16, True, None),          # one token
+    (1, 1, 4, 2, 256, torch.bfloat16, False, None),
+    (1, 2048, 10, 1, 256, torch.bfloat16, True, None),     # recurrentgemma-2b's window
+    (2, 200, 4, 2, 16, torch.bfloat16, True, None),        # D 16 and 32: narrow swizzles
+    (2, 200, 4, 2, 32, torch.bfloat16, False, None),
+    (2, 150, 4, 2, 33, torch.bfloat16, True, None),        # D % 8 != 0: element loads
 ]
 # tests/test_flash_attention.py's tolerances: f32 sums in another order;
 # bf16 outputs, and the kernel rounds p to bf16 before P·V as the JAX kernel does.
@@ -181,15 +205,17 @@ def test_cuda_flash_attention_matches_plain(cuda, b, s, h, kv, d, dtype, causal,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
-def test_cuda_flash_kernel_aligns_unequal_lengths_at_zero(cuda, causal):
+def test_cuda_flash_kernel_aligns_unequal_lengths_at_zero(cuda, causal, dtype):
     """Sq != Skv at the kernel level follows the plain version's top-left
     alignment; the op itself takes equal lengths only."""
-    q, k, v = _qkv(np.random.default_rng(6), 2, 70, 4, 2, 64, torch.float32, cuda, s_kv=150)
+    q, k, v = _qkv(np.random.default_rng(6), 2, 70, 4, 2, 64, dtype, cuda, s_kv=150)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     got = fa_kernel.flash_attention(qt, kt, vt, causal=causal)
-    torch.testing.assert_close(got, flash_attention_ref(qt, kt, vt, causal=causal),
-                               atol=5e-5, rtol=0)
+    torch.testing.assert_close(got.float(),
+                               flash_attention_ref(qt, kt, vt, causal=causal).float(),
+                               atol=FLASH_ATOL[dtype], rtol=0)
     with pytest.raises(ValueError, match="equal query and key lengths"):
         flash_attention(q, k, v, use_pallas=True)
 
@@ -209,6 +235,9 @@ def test_cuda_flash_attention_rejects_what_it_cannot_take(cuda):
     wide = _qkv(np.random.default_rng(7), 1, 64, 4, 2, 256, torch.float32, cuda)
     with pytest.raises(ValueError, match="tiles"):  # 330,752 bytes of shared memory
         flash_attention(*wide, use_pallas=True, block_q=128, block_k=128)
+    with pytest.raises(ValueError, match=r"must be \(64, 64\)"):  # not the bf16 tile
+        flash_attention(*(t.bfloat16() for t in (q, k, v)), use_pallas=True,
+                        block_q=32, block_k=32)
 
 
 # ------------------------------------------------------- measured dispatch

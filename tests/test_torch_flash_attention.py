@@ -115,10 +115,26 @@ def test_flash_matches_port_full_attention_and_impl_names():
 
 
 def test_flash_kernel_tile_limits():
-    """The launcher's shared-memory arithmetic: 64 x 64 tiles fit head dim
-    256, 128 x 128 tiles do not, and tiles are square."""
+    """The launcher's shared-memory arithmetic and tiles, per dtype.
+    float32: 64 x 64 tiles fit head dim 256, 128 x 128 tiles do not, and
+    tiles are square.  bfloat16: 64 x 64 only, 8 warps in two key groups.
+    Two such blocks share an SM's 228 KB (1 KB reserved per block) up to
+    head dim 128; at 256 one block fills it (one key group of 4 warps, two
+    blocks an SM, measured slower: PERF.md)."""
+    f32, bf16 = torch.float32, torch.bfloat16
     assert fa_kernel.smem_bytes(64, 64, 256) == 148_992
     assert fa_kernel.fits(64, 64, 256) and fa_kernel.fits(128, 128, 128)
     assert not fa_kernel.fits(128, 64, 256) and not fa_kernel.fits(32, 64, 16)
     assert not fa_kernel.fits(128, 128, 256) and not fa_kernel.fits(96, 64, 64)
     assert fa_kernel.smem_bytes(32, 32, 8) == fa_kernel.smem_bytes(32, 32, 16)
+
+    assert fa_kernel.smem_bytes(64, 64, 256, bf16) == 2 * (64 + 2 * 2 * 64) * 256 == 163_840
+    assert fa_kernel.smem_bytes(64, 64, 120, bf16) == fa_kernel.smem_bytes(64, 64, 128, bf16)
+    for d in (16, 33, 64, 120, 128, 256):
+        assert fa_kernel.fits(64, 64, d, bf16)
+        for tiles in ((32, 32), (128, 64), (64, 32), (128, 128), (64, 128)):
+            assert not fa_kernel.fits(*tiles, d, bf16)
+    sm_bytes, reserved = 233_472, 1_024
+    assert 2 * (fa_kernel.smem_bytes(64, 64, 128, bf16) + reserved) <= sm_bytes
+    assert 2 * (fa_kernel.smem_bytes(64, 64, 256, bf16) + reserved) > sm_bytes
+    assert fa_kernel.fits(32, 32, 64, f32) and not fa_kernel.fits(32, 32, 64, bf16)

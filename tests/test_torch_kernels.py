@@ -6,6 +6,8 @@ JAX side runs its oracles and its Pallas kernels in interpret mode.  The
 CUDA kernels themselves are held against those plain versions on a card by
 tests/test_torch_cuda.py.
 """
+import shutil
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -122,6 +124,42 @@ def test_kernel_defaults_rows():
         kernel_defaults("meta")
 
 
+def test_flash_tiles_and_hop_rows_are_per_dtype_and_compiled():
+    """The card's default flash tile is compiled for both dtypes, the tuner
+    offers each dtype only its kernel's tiles, and the hop kernel's row
+    tile is fixed in its source (one launch shape)."""
+    from repro_torch.kernels.autotune import _dc_grid, _fa_grid
+    from repro_torch.kernels.flash_attention.kernel import BF16_BLOCK, BLOCKS
+
+    kd = kernel_defaults("cuda")
+    assert kd.block_q == kd.block_k and kd.block_q in BLOCKS
+    assert kd.block_q == BF16_BLOCK
+    dims = {"b": 2, "s": 512, "h": 16, "hkv": 1, "d": 256}
+    assert _fa_grid(dims, kd, torch.bfloat16) == ({"block_q": 64, "block_k": 64},)
+    assert {p["block_q"] for p in _fa_grid(dims, kd, torch.float32)} == {32, 64}
+    assert _dc_grid({"c": 128}, kd, torch.float32) == ({},)
+    assert _dc_grid({"c": 256}, kd, torch.float32) == ()
+
+
+def test_library_digest_covers_the_shared_headers(tmp_path, monkeypatch):
+    """An edit to a csrc/*.cuh header renames every library, so each source
+    that includes it is rebuilt."""
+    from repro_torch.kernels import build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build._CSRC, csrc)
+    monkeypatch.setattr(build, "_CSRC", csrc)
+    before = {name: build.library_path(name) for name in build.SOURCES}
+    (csrc / "window_gather.cu").write_text((csrc / "window_gather.cu").read_text() + "\n")
+    assert build.library_path("window_gather") != before["window_gather"]
+    assert build.library_path("hop_project") == before["hop_project"]
+    header = csrc / "mma.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    after = {name: build.library_path(name) for name in build.SOURCES}
+    assert all(after[name] != before[name] for name in build.SOURCES)
+    assert all(path.parent == before[name].parent for name, path in after.items())
+
+
 # ------------------------------------------------------------ diffusion_conv
 @pytest.mark.parametrize("n,b,c,h,block", [(24, 2, 10, 8, 8), (16, 3, 66, 12, 16),
                                             (128, 4, 16, 32, 128)])
@@ -163,6 +201,56 @@ def test_diffusion_conv_matches_jax(b, n, c, h, k, block):
         np.testing.assert_allclose(got, jpal, atol=ATOL, rtol=RTOL)
     np.testing.assert_allclose(diffusion_conv_ref(*args, k_hops=k).numpy(), jref,
                                atol=ATOL, rtol=RTOL)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> TF32 (10 mantissa bits), to nearest with ties away from
+    zero, as cvt.rna.tf32.f32 and the hop kernel's integer rounding give."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_matmul(a: torch.Tensor, b: torch.Tensor, terms: int) -> torch.Tensor:
+    """a @ b as the tensor cores compute it from TF32 operands, float32
+    accumulation: one product of the rounded operands, or the 3xTF32 sum
+    a_lo·b_hi + a_hi·b_lo + a_hi·b_hi.  A product of two TF32 values is exact
+    in float32."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    if terms == 1:
+        return a_hi @ b_hi
+    return (_tf32(a - a_hi) @ b_hi + a_hi @ _tf32(b - b_hi)) + a_hi @ b_hi
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    x = torch.tensor([1 + 2**-11, -(1 + 2**-11), 1 + 2**-12, 1 + 3 * 2**-11, 3.0])
+    assert _tf32(x).tolist() == [1 + 2**-10, -(1 + 2**-10), 1.0, 1 + 2**-9, 3.0]
+
+
+def test_3xtf32_hop_keeps_fp32_tolerance_and_one_tf32_product_does_not():
+    """The hop kernel's precision design, emulated: at N 512, B 4, C 66,
+    H 128 on a random-walk support, the 3xTF32 hop and projection stay
+    within atol = rtol = 1e-4 of float64 (chip_smoke.py's HOP_ATOL/RTOL);
+    one TF32 product per fp32 product does not."""
+    rng = np.random.default_rng(11)
+    n, b, c, h = 512, 4, 66, 128
+    s = torch.as_tensor(_supports(rng, n)[0])
+    z = torch.as_tensor(rng.standard_normal((n, b, c)).astype(np.float32))
+    w = torch.as_tensor((rng.standard_normal((c, h)) / np.sqrt(c)).astype(np.float32))
+    y = torch.as_tensor(rng.standard_normal((n, b, h)).astype(np.float32))
+    z64 = (s.double() @ z.double().reshape(n, b * c)).reshape(n, b, c)
+    y64 = y.double() + z64 @ w.double()
+
+    def run(terms):
+        zt = _tf32_matmul(s, z.reshape(n, b * c), terms).reshape(n, b, c)
+        yt = y + _tf32_matmul(zt.reshape(n * b, c), w, terms).reshape(n, b, h)
+        return [(got.double() - want).abs() for got, want in ((zt, z64), (yt, y64))], \
+            [1e-4 + 1e-4 * want.abs() for want in (z64, y64)]
+
+    errs3, tols = run(3)
+    errs1, _ = run(1)
+    assert all(bool((e <= tol).all()) for e, tol in zip(errs3, tols))
+    assert not all(bool((e <= tol).all()) for e, tol in zip(errs1, tols))
+    for e3, e1 in zip(errs3, errs1):
+        assert float(e3.max()) * 100 < float(e1.max())
 
 
 def test_diffusion_conv_kernel_path_refuses_gradients():
