@@ -40,11 +40,14 @@ source in parallel, and each library's count of tensor-core ``HMMA``
 instructions from ``cuobjdump -sass``: flash_attention's bf16 kernel and
 hop_project run on the tensor cores, so both counts must be above zero);
 kernels (each kernel against its plain PyTorch version at the shapes its
-path gives it: window_gather and linear_scan bit-exact, hop_project (3xTF32)
-within fp32 tolerance, flash_attention within f32 atol 5e-5 and bf16 atol
-3e-2, plus edge cases); the three paths; times (CUDA events, medians; each
-kernel's device time beside its bound from the H100 datasheet, its plain
-version and a one-call PyTorch yardstick where one exists).
+path gives it: window_gather and linear_scan bit-exact, with the gather's
+route (bulk or vector) logged, hop_project (3xTF32) within fp32 tolerance,
+flash_attention within f32 atol 5e-5 and bf16 atol 3e-2, plus edge cases);
+the three paths; times (CUDA events, medians; each kernel's device time
+beside its bound from the H100 datasheet, its plain version and a one-call
+PyTorch yardstick where one exists: window_gather and index_select in
+turns; linear_scan at every prefill group shape and at decode beside its
+launch floor, the same launch at [1, 1, 32]).
 
 Cuts: the ST-GNN series has 8,640 entries (30 days of 5-minute bins)
 instead of PeMS-All-LA's 105,120, and the train split is cut to the 20
@@ -148,6 +151,18 @@ def median_ms(fn, *, reps: int = 5, inner: int = 1, warmup: int = 1,
     return statistics.median(times)
 
 
+def in_turns(fns: dict, *, rounds: int = 2, **kw) -> dict:
+    """Each of two callables timed in turns (first, second, second, first),
+    ``rounds`` times, by :func:`median_ms` with ``kw``: the median of each
+    one's turns, so that both see the same clocks and neighbours."""
+    (na, fa), (nb, fb) = fns.items()
+    times = {na: [], nb: []}
+    for _ in range(rounds):
+        for name, fn in ((na, fa), (nb, fb), (nb, fb), (na, fa)):
+            times[name].append(median_ms(fn, **kw))
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
 def phase_device() -> str:
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -208,8 +223,9 @@ def graph():
 
 def phase_kernels(supports) -> dict:
     """Each kernel against its plain version at main-path shapes."""
+    from repro_torch.kernels.common import sm_count
     from repro_torch.kernels.diffusion_conv.kernel import hop_project, hop_project_plain
-    from repro_torch.kernels.window_gather.kernel import window_gather
+    from repro_torch.kernels.window_gather.kernel import launch_shape, window_gather
     from repro_torch.kernels.window_gather.ref import window_gather_ref
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -230,6 +246,14 @@ def phase_kernels(supports) -> dict:
         "out-of-range starts": (series, torch.tensor(
             [-5, 0, ENTRIES - span, ENTRIES - span + 1, ENTRIES + 100, -2**31,
              2**31 - 1], device="cuda", dtype=torch.int32)),
+        "f32 C=48 (192-byte rows)": (series[:, :48].contiguous(), starts),
+        "f32 C=10,000 (pieces cut rows)": (
+            torch.randn((300, 10_000), device="cuda", generator=gen), starts % (300 - span)),
+        "f32 unaligned base": (series.view(-1)[1:1 + 500 * 48].view(500, 48),
+                               starts % (500 - span)),
+        "64 windows (the ring wraps)": (series, torch.randint(
+            0, ENTRIES - span + 1, (2 * BATCH,), device="cuda", generator=gen,
+            dtype=torch.int32)),
     }
     errs = {}
     for label, (ser, st) in cases.items():
@@ -240,7 +264,12 @@ def phase_kernels(supports) -> dict:
               f"window_gather {label} differs from its plain version")
         if label == "f32 main path":
             errs["window_gather"] = float((out - want).abs().max())
-        log(f"window_gather {label} {tuple(ser.shape)} {ser.dtype}: bit-exact")
+        row_bytes = ser.shape[1] * ser.element_size()
+        route, blocks = launch_shape(
+            len(st), span, row_bytes, aligned=(ser.data_ptr() | out.data_ptr()) % 16 == 0,
+            sms=sm_count(ser.device))
+        log(f"window_gather {label} {tuple(ser.shape)} {ser.dtype}, {len(st)} windows: "
+            f"bit-exact ({route} route, {blocks} blocks)")
 
     hop_errs = []
     n, cin = NODES, FEATURES + HIDDEN
@@ -375,8 +404,9 @@ def compare_forecast(pipe, state, mae):
 
 
 def phase_times(pipe, fpipe, state, supports, errs) -> list[dict]:
+    from repro_torch.kernels.common import sm_count
     from repro_torch.kernels.diffusion_conv.kernel import hop_project, hop_project_plain
-    from repro_torch.kernels.window_gather.kernel import window_gather
+    from repro_torch.kernels.window_gather.kernel import launch_shape, window_gather
     from repro_torch.kernels.window_gather.ref import window_gather_ref
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -421,13 +451,19 @@ def phase_times(pipe, fpipe, state, supports, errs) -> list[dict]:
         series.index_select(0, flat_idx[lib_it["i"] % len(flat_idx)])
         lib_it["i"] += 1
 
-    g_ms = median_ms(cycle(lambda s: window_gather(series, s, span=span)),
+    # The kernel and index_select in turns (index_select, kernel, kernel,
+    # index_select, twice), each turn a median of 5 means of 20 calls.
+    turns = in_turns({"index_select": lib_gather,
+                      "kernel": cycle(lambda s: window_gather(series, s, span=span))},
                      inner=20, device_only=True)
+    g_ms, g_lib = turns["kernel"], turns["index_select"]
     g_plain = median_ms(cycle(lambda s: window_gather_ref(series, s, span=span)),
                         inner=20, device_only=True)
-    g_lib = median_ms(lib_gather, inner=20, device_only=True)
-    g_bytes = 2 * BATCH * span * series.shape[1] * series.element_size() + BATCH * 4
+    row_bytes = series.shape[1] * series.element_size()
+    g_bytes = 2 * BATCH * span * row_bytes + BATCH * 4
     g_bound = g_bytes / PEAK_BYTES_PER_S * 1e3
+    route, blocks = launch_shape(BATCH, span, row_bytes, aligned=series.data_ptr() % 16 == 0,
+                                 sms=sm_count(series.device))
 
     # hop_project at both main-path shapes (H = 128 for the ru gate, 64 for
     # the c gate: equal launch counts on the path), reported as their mean.
@@ -455,9 +491,10 @@ def phase_times(pipe, fpipe, state, supports, errs) -> list[dict]:
         log(f"time: hop_project H={h}: {h_ms[-1]:.4f} ms, plain {h_plain[-1]:.4f} ms, "
             f"torch.matmul S@Z {h_lib[-1]:.4f} ms, bound {h_bound[-1]:.4f} ms (3xTF32 operations; {fp32_bound:.4f} ms by fp32 "
             f"on CUDA cores) ({flops / h_ms[-1] / 1e9:.1f} fp32-equivalent TFLOP/s)")
-    log(f"time: window_gather {g_ms:.4f} ms, plain {g_plain:.4f} ms, "
-        f"index_select {g_lib:.4f} ms, bound {g_bound:.4f} ms "
-        f"({g_bytes / g_ms / 1e6:.1f} GB/s)")
+    log(f"time: window_gather ({route} route, {blocks} blocks, {row_bytes}-byte rows) "
+        f"{g_ms:.5f} ms, plain {g_plain:.5f} ms, index_select {g_lib:.5f} ms (kernel and "
+        f"index_select in turns: {g_ms / g_lib:.3f}x), bound {g_bound:.5f} ms "
+        f"({g_bytes / g_ms / 1e6:.1f} GB/s, {g_bound / g_ms:.1%} of the bound)")
     mean = statistics.fmean
     return [
         {"name": "window_gather", "route": "cuda",
@@ -682,6 +719,11 @@ def phase_serve_times(cfg, eng, groups, steps, wall, n_tok, launches, err) -> di
     shapes = {(RG_SLOTS, 1, w): len(steps)}
     for (k, plen), _ in groups:
         shapes[(k, plen, w)] = shapes.get((k, plen, w), 0) + 1
+    # The launch floor: the same ctypes launch path at [1, 1, 32], where the
+    # kernel moves 384 bytes.
+    a, x = scan_inputs(gen, 1, 1, 32)
+    h0 = torch.randn((1, 32), device="cuda", generator=gen)
+    floor = median_ms(lambda: linear_scan(a, x, h0), inner=20, device_only=True)
     rows = []
     for (b, s, d), n in shapes.items():
         a, x = scan_inputs(gen, b, s, d)
@@ -691,10 +733,11 @@ def phase_serve_times(cfg, eng, groups, steps, wall, n_tok, launches, err) -> di
                           device_only=True)
         bound = scan_bound_ms(b, s, d)
         rows.append((n * 18, ms, plain, bound))
-        log(f"time: linear_scan [{b}, {s}, {d}] f32: {ms:.4f} ms, plain "
-            f"{plain:.4f} ms, bound {bound:.5f} ms (bytes; "
-            f"{(3 * b * s * d + 2 * b * d) * 4 / ms / 1e6:.1f} GB/s)"
-            f"{'; launch-bound at this size' if s == 1 else ''}; "
+        beside = (f"; launch floor [1, 1, 32] {floor:.5f} ms, {ms / floor:.2f}x of it"
+                  if s == 1 else "")
+        log(f"time: linear_scan [{b}, {s}, {d}] f32: {ms:.5f} ms, plain "
+            f"{plain:.4f} ms, bound {bound:.5f} ms (bytes; {ms / bound:.2f}x the bound; "
+            f"{(3 * b * s * d + 2 * b * d) * 4 / ms / 1e6:.1f} GB/s){beside}; "
             f"{n * 18} launches on the path")
     total = sum(r[0] for r in rows)
 

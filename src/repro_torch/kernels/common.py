@@ -10,6 +10,7 @@ fallback from one row to the other.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -17,24 +18,19 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class KernelDefaults:
     """``kernel``          launch the hand-written kernel (else the plain version).
-    ``gather_threads``  threads per block of ``window_gather``: one block per
-                        output row, each thread moving 16-byte vectors when
-                        the row allows it.
-    ``scan_threads``    threads per block of ``linear_scan``: one thread per
-                        (batch, channel); 128 spreads the RG-LRU's 8 x 2,560
-                        channels over 160 blocks, more than the 132 SMs.
     ``block_q/k``       ``flash_attention``'s query and key tile lengths
                         (square: both 32, 64 or 128 in float32; the bfloat16
                         kernel takes 64 only).  64 x 64 keeps the f32 tiles
                         of head_dim 256 in 148,992 bytes of shared memory.
 
     ``hop_project``'s tile (64 node rows per block of 128 threads) is fixed
-    in its source.
+    in its source.  ``linear_scan`` and ``window_gather`` take their launch
+    shapes from the call's shape and the card's SM count
+    (:func:`~repro_torch.kernels.linear_scan.kernel.scan_threads`,
+    :func:`~repro_torch.kernels.window_gather.kernel.launch_shape`).
     """
 
     kernel: bool
-    gather_threads: int = 256
-    scan_threads: int = 128
     block_q: int = 64
     block_k: int = 64
 
@@ -49,6 +45,18 @@ def resolve_backend(tensor: torch.Tensor) -> str:
     """The row a call tiles for: the device type of its first tensor, read
     now, per call."""
     return tensor.device.type
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of the CUDA card ``device`` (132 on an
+    H100 SXM)."""
+    index = device.index
+    return _sm_count(torch.cuda.current_device() if index is None else index)
 
 
 def kernel_defaults(device: torch.device | str) -> KernelDefaults:

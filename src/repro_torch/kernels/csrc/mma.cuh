@@ -1,6 +1,8 @@
-// Thin inline-PTX wrappers over the warp-level tensor-core instructions that
-// flash_attention.cu and hop_project.cu share (sm_80 and later; built here
-// for sm_90a).
+// Thin inline-PTX wrappers that the kernels share (built for sm_90a): the
+// warp-level tensor-core instructions of flash_attention.cu and
+// hop_project.cu (sm_80 and later), `cp.async` (those two and
+// linear_scan.cu), and the mbarriers and bulk copies of window_gather.cu
+// (sm_90).
 //
 // Fragment layouts of one warp (lane = 4·g + t, g = lane / 4, t = lane % 4),
 // as the PTX ISA defines them for mma.sync:
@@ -88,6 +90,72 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// ------------------------------------------------------------- mbarriers
+__device__ __forceinline__ void mbarrier_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+// Make initialised barriers visible to the bulk copy engine.
+__device__ __forceinline__ void mbarrier_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// One arrival, and `bytes` more to land on the barrier before its phase ends.
+__device__ __forceinline__ void mbarrier_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// Until the barrier's phase of the given parity has completed.
+__device__ __forceinline__ void mbarrier_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+
+// ------------------------------------------------------------ bulk copies
+// An L2 policy that evicts first the lines it tags: for data read once.
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+
+// global -> shared, `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) counted on `bar` when they land; the lines read carry `policy`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
+      " [%0], [%1], %2, [%3], %4;\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar), "l"(policy) : "memory");
+}
+
+// shared -> global, as one bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               :: "l"(dst), "r"(src), "r"(bytes) : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Until at most N bulk store groups of this thread still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
+// Until every bulk store group of this thread has completed.
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // Round to TF32 (10 mantissa bits), to nearest with ties away from zero:

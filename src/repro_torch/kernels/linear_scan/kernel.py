@@ -6,6 +6,14 @@ Replaces the Pallas TPU kernel ``linear_scan`` of the JAX package
 version is :func:`~repro_torch.kernels.linear_scan.ref.linear_scan_ref`: a
 CPU tensor takes it, a CUDA tensor launches the kernel or raises.
 ``linear_scan.launches`` counts the kernel's launches.
+
+Launch shape (:func:`scan_threads`): one thread per (batch, channel), a
+block of one warp (32 consecutive channels of one batch row) or two.  Two
+only where that still leaves a block for every SM and D is wider than one
+warp; otherwise one, so B = 2 at the RG-LRU's D = 2,560 is 160 blocks on the
+H100's 132 SMs.  Each block streams a and b through a ring of shared-memory
+stages (``csrc/linear_scan.cu``).  A decode step (S = 1) takes a kernel
+without a ring, whose launch shape is fixed.
 """
 from __future__ import annotations
 
@@ -14,10 +22,17 @@ import ctypes
 import torch
 
 from repro_torch.kernels.build import library
-from repro_torch.kernels.common import kernel_defaults
+from repro_torch.kernels.common import kernel_defaults, sm_count
 from repro_torch.kernels.linear_scan.ref import linear_scan_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+def scan_threads(batch: int, dim: int, sms: int) -> int:
+    """Threads (= channels) a block of the scan over [batch, *, dim] on a
+    card with ``sms`` SMs: 64 where ``batch`` x ceil(dim / 64) blocks still
+    cover every SM and dim > 32, else 32."""
+    return 64 if dim > 32 and batch * -(-dim // 64) >= sms else 32
 
 
 def _entry():
@@ -66,7 +81,8 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None = None
         err = fn(a.data_ptr(), b.data_ptr(), None if h0 is None else h0.data_ptr(),
                  h_seq.data_ptr(), h_last.data_ptr(), bsz, s, d,
                  int(a.dtype == torch.bfloat16), int(h_dtype == torch.bfloat16),
-                 kd.scan_threads, torch.cuda.current_stream(a.device).cuda_stream)
+                 scan_threads(bsz, d, sm_count(a.device)),
+                 torch.cuda.current_stream(a.device).cuda_stream)
     if err:
         raise RuntimeError(f"linear_scan launch failed: "
                            f"{lib.linear_scan_error(err).decode()} ({err})")

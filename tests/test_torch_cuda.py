@@ -29,6 +29,12 @@ GATHER_SHAPES = [  # tests/test_kernels.py's window_gather cases, and two more
     (40, (130,), 3, 5, np.float32),
     (500, (13,), 7, 9, np.uint8),
     (300, (2716, 2), 24, 32, np.float32),  # main-path row width
+    # the bulk route (16-byte rows; 4 KB pieces, a ring of 8 a block)
+    (300, (48,), 24, 32, np.float32),      # 192-byte rows, 9 blocks of 2 windows and more
+    (64, (10_000,), 3, 2, np.float32),     # 40,000-byte rows: pieces cut rows
+    (50, (16,), 5, 2, np.float32),         # 640 bytes: one block, one piece a window
+    (400, (2716, 2), 24, 64, np.float32),  # 33 MB over 132 blocks: the ring wraps
+    (64, (8,), 6, 40, np.int32),
 ]
 
 
@@ -112,6 +118,29 @@ SCAN_CASES = [  # (B, S, D, a/b dtype, h0 dtype or None, decay)
     (2, 1, 33, torch.bfloat16, None, None),
     (5, 64, 7, torch.float32, torch.float32, 0.0),       # decay 0: h_t = b_t
     (5, 64, 129, torch.float32, torch.float32, 1.0),     # decay 1: cumsum
+    # the staged kernel: blocks of 32 channels and 64 steps a stage, or 64
+    # and 32; a ring of 4 stages
+    (1, 256, 2560, torch.float32, torch.float32, None),  # the serving path's
+    (1, 512, 2560, torch.float32, torch.float32, None),  # prefill groups
+    (2, 512, 2560, torch.float32, torch.float32, None),
+    (4, 128, 2560, torch.float32, torch.float32, None),
+    (4, 256, 2560, torch.float32, torch.float32, None),
+    (1, 50, 20, torch.float32, torch.float32, None),     # B·D below one block
+    (1, 70, 4225, torch.float32, torch.float32, None),   # 133 one-warp blocks
+    (133, 40, 64, torch.float32, None, None),            # 133 two-warp blocks
+    (2, 200, 2560, torch.float32, torch.float32, None),  # S = 3 x 64 + 8
+    (4, 300, 2560, torch.float32, torch.float32, None),  # S = 9 x 32 + 12: the ring wraps
+    (2, 1000, 96, torch.float32, torch.bfloat16, None),  # 16 stages
+    (2, 20, 2560, torch.float32, torch.float32, None),   # S shorter than a stage
+    (4, 17, 2560, torch.bfloat16, torch.float32, None),
+    (3, 70, 6, torch.bfloat16, torch.bfloat16, None),    # 12-byte rows: 4-byte copies
+    (3, 70, 33, torch.bfloat16, torch.float32, None),    # odd bf16 rows: element loads
+    (2, 90, 2562, torch.bfloat16, None, None),           # 5,124-byte rows
+    (2, 0, 64, torch.float32, torch.float32, None),      # no steps: h_last = h0
+    # S = 1 takes the step kernel: 4 channels a thread where B·D allows it
+    (1, 1, 32, torch.float32, None, None),               # the launch floor's shape
+    (4, 1, 64, torch.bfloat16, torch.bfloat16, None),
+    (3, 1, 7, torch.float32, torch.float32, None),       # B·D = 21: one a thread
 ]
 
 
@@ -132,6 +161,20 @@ def test_cuda_linear_scan_bit_exact_to_plain(cuda, b, s, d, dtype, h_dtype, deca
     want_seq, want_last = linear_scan_ref(a, bb, h0)
     assert seq.dtype == dtype and last.dtype == (h_dtype or dtype)
     assert torch.equal(seq, want_seq) and torch.equal(last, want_last)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_cuda_window_gather_unaligned_base_takes_the_vector_route(cuda, offset):
+    """A 16-byte row whose series does not start on a 16-byte boundary."""
+    rng = np.random.default_rng(4)
+    flat = torch.as_tensor(rng.standard_normal(offset + 200 * 48).astype(np.float32)).to(cuda)
+    series = flat[offset:].view(200, 48)
+    assert wg_kernel.launch_shape(5, 12, 192, aligned=series.data_ptr() % 16 == 0,
+                                  sms=132)[0] == "vector"
+    starts = torch.as_tensor(rng.integers(-3, 203, size=5).astype(np.int32)).to(cuda)
+    got = window_gather(series, starts, span=12, use_pallas=True)
+    assert torch.equal(got, window_gather(series, starts, span=12))
 
 
 @pytest.mark.cuda
