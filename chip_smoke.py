@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's three main paths through their user entry points, each at
+Drives the port's four main paths through their user entry points, each at
 the full width of a registered arch, with every kernel count set to 0 just
 before a path and read just after it:
 
@@ -10,7 +10,20 @@ before a path and read just after it:
   ``build_pipeline(..., gather="pallas").fit()`` for 20 steps of 32 windows
   (the gather through the CUDA ``window_gather``), then
   ``evaluate(split="test")`` with ``use_pallas=True`` (every hop through the
-  CUDA ``hop_project``), held against the plain evaluation;
+  CUDA ``hop_project``), held against the plain evaluation; then the same
+  20 steps through the feed prefetcher (depth 2) at staleness 0 and 1, each
+  bit-equal to the synchronous run;
+- ``dcrnn-pems`` through the training launcher,
+  ``repro_torch.launch.train.main([...])``, at its full width (11,160
+  nodes, 2 -> 1 features, hidden 64, 2 + 2 DCGRU layers, K = 2 over 2
+  dense supports, 12 in / 12 out), batch 8, ``--gather pallas``,
+  checkpoints every 2 steps, a JSONL history and prefetch depth 2: run A
+  trains one epoch; a fresh directory holding A's oldest retained mid-epoch
+  checkpoint resumes with ``--resume``, and its history rows and final
+  checkpoint must equal A's bit for bit; A's final checkpoint then
+  forecasts one test batch through ``dcrnn.loss_fn`` with every hop
+  through the CUDA ``hop_project`` (384 launches), held against the plain
+  hops;
 - the serving path at ``recurrentgemma-2b`` width (26 layers as
   8 x (rec, rec, swa) + (rec, rec), d_model 2,560, 10 heads, 1 kv head,
   head_dim 256, d_ff 7,680, vocab 256,000, lru_width 2,560, window 2,048,
@@ -43,7 +56,10 @@ kernels (each kernel against its plain PyTorch version at the shapes its
 path gives it: window_gather and linear_scan bit-exact, with the gather's
 route (bulk or vector) logged, hop_project (3xTF32) within fp32 tolerance,
 flash_attention within f32 atol 5e-5 and bf16 atol 3e-2, plus edge cases);
-the three paths; times (CUDA events, medians; each kernel's device time
+the four paths; the ``hop_project`` cases of the DCRNN path (N 11,160, B
+8, C 65/66/128, H 64/128) and past C = 128 (130 and 192 as column tiles,
+N 2,716) within fp32 tolerance, ``window_gather`` at its 89,280-byte rows
+bit-exact; times (CUDA events, medians; each kernel's device time
 beside its bound from the H100 datasheet, its plain version and a one-call
 PyTorch yardstick where one exists: window_gather and index_select in
 turns; linear_scan at every prefill group shape and at decode beside its
@@ -51,7 +67,9 @@ launch floor, the same launch at [1, 1, 32]).
 
 Cuts: the ST-GNN series has 8,640 entries (30 days of 5-minute bins)
 instead of PeMS-All-LA's 105,120, and the train split is cut to the 20
-steps' 640 windows (5 steps' 160 on the dispatch path).  The serving cell
+steps' 640 windows (5 steps' 160 on the dispatch path).  The dcrnn-pems
+series has 104 entries instead of the 105,120 of a year: 81 windows, so one
+epoch is 7 steps of 8 (8 val, 16 test windows).  The serving cell
 cuts traffic only (16 requests, prompt lengths drawn from 128, 256 and 512
 tokens); no width or depth is cut.
 
@@ -59,8 +77,8 @@ Prints the kernels' JSON line, then ``{"ok": true, "device": {...}}`` as the
 last line; exits non-zero on any failure, and without a card.
 
 Run from the repository root:  python3 chip_smoke.py [--profile]
-(``--profile`` adds a torch.profiler breakdown of one train step, one
-forecast batch and one decode step.)
+(``--profile`` adds a torch.profiler breakdown of one train step and one
+forecast batch of each ST-GNN model, and of one decode step.)
 """
 from __future__ import annotations
 
@@ -304,9 +322,10 @@ def make_data(adj):
     return raw
 
 
-def stgnn_pipeline(raw, supports, gather: str, steps: int):
+def stgnn_pipeline(raw, supports, gather: str, steps: int, **loop_kw):
     """The ST-GNN trainer at full width: ``steps`` train steps of BATCH
-    windows, params drawn from SEED, the window gather named ``gather``."""
+    windows, params drawn from SEED, the window gather named ``gather``,
+    ``loop_kw`` passed to the TrainLoopConfig."""
     from repro_torch.core import IndexDataset, WindowSpec
     from repro_torch.models import pgt_dcrnn
     from repro_torch.optim import AdamConfig
@@ -329,7 +348,7 @@ def stgnn_pipeline(raw, supports, gather: str, steps: int):
         None, spec, loss_fn, params,
         PipelineConfig(batch_per_rank=BATCH, gather=gather, seed=SEED,
                        device="cuda", adam=AdamConfig(lr=1e-3),
-                       loop=TrainLoopConfig(epochs=1, log_every=1)),
+                       loop=TrainLoopConfig(epochs=1, log_every=1, **loop_kw)),
         dataset=ds)
     return cfg, spec, pipe
 
@@ -361,7 +380,7 @@ def phase_train(raw, supports):
     check(all(np.isfinite(losses)), "non-finite training loss")
     check(losses[-1] < losses[0], "training did not lower the loss")
     check(gathers >= TRAIN_STEPS, "train steps did not go through the CUDA gather")
-    return cfg, spec, pipe, state
+    return cfg, spec, pipe, state, losses
 
 
 def phase_forecast(cfg, spec, pipe, state, supports):
@@ -530,6 +549,320 @@ def phase_profile(pipe, fpipe, state) -> None:
                 torch.cuda.synchronize()
         log(f"profile: {label}")
         log(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=12))
+
+
+def phase_prefetch(raw, supports, sync_losses) -> None:
+    """The feed prefetcher on the ST-GNN train path: prefetch depth 2 at
+    staleness 0 (copies at consume, on the step thread) and at staleness 1
+    (copies from pinned buffers on a side stream, a step ahead), each
+    bit-equal to the synchronous run, timed beside a synchronous run."""
+    runs = {}
+    for label, kw in (("synchronous", {}),
+                      ("staleness 0", dict(prefetch_depth=2, staleness=0)),
+                      ("staleness 1", dict(prefetch_depth=2, staleness=1))):
+        _, _, pipe = stgnn_pipeline(raw, supports, "pallas", TRAIN_STEPS, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = fit_losses(pipe)
+        runs[label] = (time.perf_counter() - t0) * 1e3 / len(losses)
+        check(losses == sync_losses, f"prefetch {label}: losses differ from the "
+                                     f"synchronous run's")
+        del pipe
+    log(f"prefetch: {TRAIN_STEPS} steps at each setting, losses bit-equal to the "
+        f"synchronous run; host ms a step (wall of the fit / steps, log_every 1): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in runs.items()))
+
+
+# ------------------------------------------- dcrnn-pems through the launcher
+DC_ARCH = "dcrnn-pems"
+DC_ENTRIES = 104   # 81 windows: 7 train steps of 8, 8 val, 16 test
+DC_BATCH = 8       # the paper's per-GPU share: global batch 1,024 over 128 GPUs
+DC_CKPT_EVERY = 2
+
+
+class StepTimer:
+    """Host ms of every train step the engine runs while installed (the
+    step ends in a synchronize), by wrapping the step handed to
+    ``run_training``."""
+
+    def __init__(self):
+        self.ms: list[float] = []
+
+    def __enter__(self):
+        from repro_torch.pipeline import engine
+
+        self._engine, self._run = engine, engine.run_training
+
+        def run(**kw):
+            step = kw["train_step"]
+
+            def timed(state, batch):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(state, batch)
+                torch.cuda.synchronize()
+                self.ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+
+            return self._run(**{**kw, "train_step": timed})
+
+        engine.run_training = run
+        return self
+
+    def __exit__(self, *exc):
+        self._engine.run_training = self._run
+
+
+def dc_rows(path) -> list[dict]:
+    with open(path) as f:
+        return [{k: v for k, v in json.loads(line).items() if k != "epoch_time_s"}
+                for line in f]
+
+
+def phase_dcrnn_train(work) -> dict:
+    """Run A through the launcher, then a resume from one of its
+    mid-epoch checkpoints, held bit for bit against run A."""
+    from repro_torch.distributed import Checkpointer
+    from repro_torch.launch.train import main as launch
+    from repro_torch.kernels.window_gather.kernel import window_gather
+
+    flags = ["--arch", DC_ARCH, "--entries", str(DC_ENTRIES), "--batch", str(DC_BATCH),
+             "--seed", str(SEED), "--gather", "pallas", "--ckpt-every", str(DC_CKPT_EVERY),
+             "--prefetch-depth", "2", "--staleness", "0", "--log-every", "1"]
+    a_dir, a_hist = os.path.join(work, "A"), os.path.join(work, "A.jsonl")
+    before = window_gather.launches
+    t0 = time.perf_counter()
+    with StepTimer() as timer:
+        launch([*flags, "--ckpt-dir", a_dir, "--history-out", a_hist])
+    wall_a = time.perf_counter() - t0
+    rows_a = dc_rows(a_hist)
+    steps = [r for r in rows_a if "lr" in r]
+    losses = [r["loss"] for r in steps]
+    n = len(steps)
+    gathers = window_gather.launches - before
+    kept = Checkpointer(a_dir).steps()
+    saved = [s for s in range(DC_CKPT_EVERY, n + 1, DC_CKPT_EVERY)] + [n]
+    expect = sorted(set(saved))[-3:]  # keep=3, the Checkpointer's retention
+    step_ms = statistics.median(timer.ms[1:])
+    log(f"dcrnn: run A: {n} steps in {wall_a:.1f} s (data and eval included); loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; val MAE {rows_a[-1].get('val_mae')}; "
+        f"train step {step_ms:.3f} ms (median of steps 2..{n}; all: "
+        f"{', '.join(f'{t:.1f}' for t in timer.ms)}); window_gather launches {gathers}; "
+        f"checkpoints {kept}")
+    check(n >= 6 and all(np.isfinite(losses)), f"run A: {n} steps, losses {losses}")
+    check(gathers >= n, "run A's steps did not go through the CUDA gather")
+    check(kept == expect, f"checkpoints {kept}, expected {expect} (every "
+                          f"{DC_CKPT_EVERY} steps and at the end, newest 3 kept)")
+
+    # Resume from the oldest retained mid-epoch checkpoint, in a fresh
+    # directory, with a fresh history.
+    mid = kept[0]
+    b_dir, b_hist = os.path.join(work, "B"), os.path.join(work, "B.jsonl")
+    os.makedirs(b_dir)
+    shutil.copytree(os.path.join(a_dir, f"step_{mid:010d}"),
+                    os.path.join(b_dir, f"step_{mid:010d}"))
+    launch([*flags, "--ckpt-dir", b_dir, "--history-out", b_hist, "--resume"])
+    rows_b = dc_rows(b_hist)
+    want = [r for r in rows_a if r["step"] > mid]
+    with np.load(os.path.join(a_dir, f"step_{n:010d}", "arrays.npz")) as za, \
+            np.load(os.path.join(b_dir, f"step_{n:010d}", "arrays.npz")) as zb:
+        same_state = sorted(za.files) == sorted(zb.files) and all(
+            np.array_equal(za[k], zb[k]) for k in za.files)
+    log(f"dcrnn: resume from step {mid}: {len(rows_b)} rows (steps {mid + 1}..{n} and "
+        f"the epoch summary) {'equal' if rows_b == want else 'DIFFER from'} run A's bit "
+        f"for bit; final checkpoint {'identical' if same_state else 'DIFFERS'}")
+    check(rows_b == want and len(rows_b) == n - mid + 1,
+          f"resumed rows {rows_b} differ from run A's {want}")
+    check(same_state, "the resumed run's final state differs from run A's")
+    return {"dir": a_dir, "steps": n, "step_ms": step_ms, "wall_a": wall_a}
+
+
+def dc_graph_and_data():
+    """The launcher's own graph and series for dcrnn-pems (same seed)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import (gaussian_adjacency, make_traffic_series,
+                                  random_sensor_coords, transition_matrices)
+
+    cfg = get_arch(DC_ARCH).model
+    t0 = time.perf_counter()
+    adj = gaussian_adjacency(random_sensor_coords(cfg.num_nodes, seed=SEED))
+    supports = tuple(torch.as_tensor(np.ascontiguousarray(s), device="cuda")
+                     for s in transition_matrices(adj))  # as the launcher places them
+    raw = make_traffic_series(DC_ENTRIES, cfg.num_nodes, cfg.in_features, seed=SEED,
+                              adjacency=adj)
+    log(f"dcrnn: graph ({cfg.num_nodes:,} nodes: float64 adjacency temporaries of "
+        f"{cfg.num_nodes ** 2 * 8 / 1e9:.2f} GB on the host, two dense supports of "
+        f"{2 * cfg.num_nodes ** 2 * 4 / 1e9:.2f} GB on the card) and series {raw.shape} "
+        f"in {time.perf_counter() - t0:.1f} s; CUT: {DC_ENTRIES} entries instead of "
+        f"the 105,120 of a year")
+    return cfg, supports, raw
+
+
+def phase_dcrnn_forecast(run, cfg, supports, raw):
+    """Run A's final checkpoint forecasts one test batch through
+    ``dcrnn.loss_fn`` with every hop through hop_project, and with the
+    plain hops."""
+    from repro_torch.core import WindowSpec
+    from repro_torch.distributed import restore
+    from repro_torch.kernels.diffusion_conv.kernel import hop_project
+    from repro_torch.models import dcrnn
+    from repro_torch.optim import AdamConfig
+    from repro_torch.pipeline import PipelineConfig, build_pipeline
+    from repro_torch.train.loop import init_train_state
+
+    template = init_train_state(dcrnn.init(torch.Generator().manual_seed(SEED), cfg,
+                                           device="cuda"), AdamConfig())
+    state, step = restore(run["dir"], template)
+    check(step == run["steps"], f"restored step {step}, expected {run['steps']}")
+    params = state["params"]
+    spec = WindowSpec(horizon=cfg.horizon, input_len=cfg.input_len)
+    pipes = {}
+    for use in (True, False):
+        c = dataclasses.replace(cfg, use_pallas=use)
+        pipes[use] = build_pipeline(
+            raw, spec, lambda p, x, y, c=c: (dcrnn.loss_fn(p, c, supports, x, y), {}),
+            params, PipelineConfig(batch_per_rank=DC_BATCH, gather="pallas", seed=SEED,
+                                   device="cuda"))
+    rows, _ = pipes[True].dataplane.eval_grid("test")
+    batch = pipes[True].batch_of_starts(rows[0])
+    with torch.no_grad():
+        before = hop_project.launches
+        mae = float(pipes[True]._eval_loss(params, batch)[0])
+        hops = hop_project.launches - before
+        plain = float(pipes[False]._eval_loss(params, batch)[0])
+        rel = abs(mae - plain) / abs(plain)
+        per_batch = 2 * cfg.layers * 2 * 2 * cfg.max_diffusion_step * cfg.input_len
+        log(f"dcrnn: forecast of {DC_BATCH} test windows from the step-{step} "
+            f"checkpoint: MAE {mae:.6f} through hop_project ({hops} launches; "
+            f"{per_batch} expected), {plain:.6f} with the plain hops; relative gap "
+            f"{rel:.3e} (rtol {EVAL_RTOL})")
+        check(np.isfinite(mae), "non-finite forecast MAE")
+        check(hops == per_batch, f"hop_project launches {hops} != {per_batch}")
+        check(rel <= EVAL_RTOL, "the forecast through hop_project disagrees with "
+                                "the plain hops")
+    return pipes, params, batch
+
+
+def dcrnn_forecast_times(pipes, params, batch):
+    with torch.no_grad():
+        fc_ms = median_ms(lambda: pipes[True]._eval_loss(params, batch), reps=3)
+        plain_ms = median_ms(lambda: pipes[False]._eval_loss(params, batch), reps=3)
+    log(f"time: dcrnn forecast batch {fc_ms:.3f} ms through hop_project, {plain_ms:.3f} "
+        f"ms with the plain hops (CUDA events, median of 3)")
+    return fc_ms, plain_ms
+
+
+def hop_bound_ms(n, b, c, h) -> float:
+    """3xTF32 operations at the TF32 peak, or the bytes (S, Z and Y read
+    once, Z_next and Y_next written once, W read once)."""
+    flops = 2 * n * n * b * c + 2 * n * b * c * h
+    nbytes = 4 * (n * n + 2 * n * b * c + 2 * n * b * h + c * h)
+    return max(3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
+
+
+def phase_dcrnn_kernels(supports, small_support, raw) -> None:
+    """hop_project at the DCRNN path's shapes and past C = 128 (column
+    tiles), and window_gather at its 89,280-byte rows."""
+    from repro_torch.kernels.common import sm_count
+    from repro_torch.kernels.diffusion_conv.kernel import (column_tiles, hop_project,
+                                                           hop_project_plain)
+    from repro_torch.kernels.window_gather.kernel import launch_shape, window_gather
+    from repro_torch.kernels.window_gather.ref import window_gather_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    n_big = supports[0].shape[0]
+    cases = [(supports[0], c, h) for c in (65, 66, 128) for h in (64, 128)]
+    cases += [(small_support, 128, 128), (small_support, 130, 64), (small_support, 192, 128)]
+    for s, c, h in cases:
+        n = s.shape[0]
+        z = torch.randn((n, DC_BATCH, c), device="cuda", generator=gen)
+        w = torch.randn((c, h), device="cuda", generator=gen) / c ** 0.5
+        y = torch.randn((n, DC_BATCH, h), device="cuda", generator=gen)
+        with torch.no_grad():
+            got = hop_project(s, z, w, y)
+            torch.cuda.synchronize()
+            want = hop_project_plain(s, z, w, y)
+            errs = [float((a - e).abs().max()) for a, e in zip(got, want)]
+            ok = all(bool(((a - e).abs() <= HOP_ATOL + HOP_RTOL * e.abs()).all())
+                     for a, e in zip(got, want))
+            timed = ""
+            if (n, c, h) == (n_big, 128, 128) or n != n_big:
+                ms = median_ms(lambda: hop_project(s, z, w, y), inner=5, device_only=True)
+                plain = median_ms(lambda: hop_project_plain(s, z, w, y), inner=5,
+                                  device_only=True)
+                z2 = z.view(n, DC_BATCH * c)
+                lib = median_ms(lambda: torch.matmul(s, z2), inner=5, device_only=True)
+                timed = (f"; {ms:.4f} ms ({len(column_tiles(c))} launches), plain "
+                         f"{plain:.4f} ms, torch.matmul S@Z {lib:.4f} ms, 3xTF32 bound "
+                         f"{hop_bound_ms(n, DC_BATCH, c, h):.4f} ms")
+        log(f"hop_project [{n}, {DC_BATCH}, {c} -> {h}] ({len(column_tiles(c))} column "
+            f"tiles): max_abs_err z {errs[0]:.3e}, y {errs[1]:.3e} (rtol {HOP_RTOL}, atol "
+            f"{HOP_ATOL}) {'ok' if ok else 'FAIL'}{timed}")
+        check(ok, f"hop_project [{n}, {DC_BATCH}, {c} -> {h}] outside tolerance")
+
+    series = torch.as_tensor(raw.reshape(raw.shape[0], -1), device="cuda")
+    span = 2 * HORIZON
+    starts = torch.randint(0, series.shape[0] - span + 1, (DC_BATCH,), device="cuda",
+                           generator=gen, dtype=torch.int32)
+    out = window_gather(series, starts, span=span)
+    torch.cuda.synchronize()
+    row_bytes = series.shape[1] * series.element_size()
+    route, blocks = launch_shape(DC_BATCH, span, row_bytes,
+                                 aligned=(series.data_ptr() | out.data_ptr()) % 16 == 0,
+                                 sms=sm_count(series.device))
+    exact = torch.equal(out, window_gather_ref(series, starts, span=span))
+    log(f"window_gather {tuple(series.shape)} f32, {DC_BATCH} windows of {span} "
+        f"({row_bytes:,}-byte rows): {'bit-exact' if exact else 'DIFFERS'} ({route} "
+        f"route, {blocks} blocks)")
+    check(exact, "window_gather at the dcrnn-pems rows differs from its plain version")
+
+
+def profile_dcrnn(pipes, params, batch) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    st = {"s": None}
+    from repro_torch.optim import AdamConfig
+    from repro_torch.train.loop import init_train_state
+    st["s"] = init_train_state(params, AdamConfig())
+    for label, fn in (("dcrnn train step",
+                       lambda: pipes[False].train_step(st["s"], batch)),
+                      ("dcrnn forecast batch",
+                       lambda: pipes[True]._eval_loss(params, batch))):
+        with torch.no_grad() if "forecast" in label else torch.enable_grad():
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+        log(f"profile: {label}")
+        log(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=12))
+
+
+def phase_dcrnn(work) -> tuple:
+    """dcrnn-pems at full width through the launcher: train, resume from a
+    mid-epoch checkpoint, forecast one test batch from the final one."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    run = phase_dcrnn_train(work)
+    cfg, supports, raw = dc_graph_and_data()
+    pipes, params, batch = phase_dcrnn_forecast(run, cfg, supports, raw)
+    log(f"dcrnn: peak device memory of the phase {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB (training without remat, batch {DC_BATCH}); path wall "
+        f"{time.perf_counter() - t0:.1f} s")
+    return run, cfg, supports, raw, pipes, params, batch
+
+
+def phase_dcrnn_times(dc, small_support, profile: bool) -> None:
+    """The dcrnn-pems path's times, its kernel cases and, with --profile,
+    its breakdowns."""
+    run, cfg, supports, raw, pipes, params, batch = dc
+    fc_ms, plain_ms = dcrnn_forecast_times(pipes, params, batch)
+    if profile:
+        profile_dcrnn(pipes, params, batch)
+    phase_dcrnn_kernels(supports, small_support, raw)
+    log(f"dcrnn: {cfg.num_nodes:,} nodes, hidden {cfg.hidden}, {cfg.layers} + "
+        f"{cfg.layers} DCGRU layers, K = {cfg.max_diffusion_step}; train step "
+        f"{run['step_ms']:.3f} ms, forecast batch {fc_ms:.3f} ms ({plain_ms:.3f} plain)")
 
 
 # --------------------------------------------------------- the serving path
@@ -1003,7 +1336,7 @@ def main() -> int:
     # The ST-GNN path: counts from 0, train then forecast, counts read after.
     window_gather.launches = 0
     hop_project.launches = 0
-    cfg, spec, pipe, state = phase_train(raw, supports)
+    cfg, spec, pipe, state, sync_losses = phase_train(raw, supports)
     fpipe, mae = phase_forecast(cfg, spec, pipe, state, supports)
     launches = {"window_gather": window_gather.launches,
                 "hop_project": hop_project.launches}
@@ -1020,6 +1353,28 @@ def main() -> int:
     log(f"peak device memory of the ST-GNN phases "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del pipe, fpipe, state
+    phase_prefetch(raw, supports, sync_losses)
+    torch.cuda.empty_cache()
+
+    # dcrnn-pems through the launcher: counts from 0, run A, resume and
+    # forecast, counts read and added to the kernels' launches.
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="dcrnn-", dir=os.path.join(ROOT, "build")) as work:
+        window_gather.launches = 0
+        hop_project.launches = 0
+        dc = phase_dcrnn(work)
+        dc_launches = {"window_gather": window_gather.launches,
+                       "hop_project": hop_project.launches}
+    log(f"dcrnn-pems path launches: {dc_launches}")
+    for k in kernels:
+        check(dc_launches[k["name"]] > 0, f"{k['name']} was not launched on the "
+                                          f"dcrnn-pems path")
+        k["launches"] += dc_launches[k["name"]]
+    phase_dcrnn_times(dc, supports[0], args.profile)
+    del dc
+    log(f"dcrnn: phase wall {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
 
     # The serving path: linear_scan's count from 0, the run, the count read.
     torch.cuda.reset_peak_memory_stats()

@@ -6,10 +6,12 @@ arch of the JAX package that is not ported yet raises and names the
 """
 from __future__ import annotations
 
-from repro_torch.configs.base import ArchSpec
+from repro_torch.configs.base import ArchSpec, ShapeCell
 from repro_torch.configs.recurrentgemma_2b import ARCH as RECURRENTGEMMA_2B
+from repro_torch.configs.stgnn import DCRNN_PEMS, PGT_DCRNN_PEMS_ALL_LA
 
-ARCHS: dict[str, ArchSpec] = {a.id: a for a in (RECURRENTGEMMA_2B,)}
+ARCHS: dict[str, ArchSpec] = {
+    a.id: a for a in (RECURRENTGEMMA_2B, DCRNN_PEMS, PGT_DCRNN_PEMS_ALL_LA)}
 
 #: archs of the JAX package that the port does not have yet, and where
 #: ``ROADMAP.md`` queues them
@@ -17,13 +19,10 @@ NOT_PORTED = {
     **dict.fromkeys(
         ("qwen1.5-4b", "minitron-8b", "granite-34b", "h2o-danube-3-4b",
          "internvl2-26b", "musicgen-large"),
-        "queue 1, item 11 (the dense LM archs and their launchers)"),
+        "queue 1, item 6 (the rest of the LM family)"),
     **dict.fromkeys(("grok-1-314b", "deepseek-v2-lite-16b"),
-                    "queue 1, item 11 (MoE and MLA)"),
-    "rwkv6-1.6b": "queue 1, item 11 (RWKV-6)",
-    "dcrnn-pems": "queue 1, item 5 (DCRNN)",
-    "pgt-dcrnn-pems-all-la": "queue 1, item 8 (the launcher's ST-GNN archs; "
-                             "the model itself is repro_torch.models.pgt_dcrnn)",
+                    "queue 1, item 6 (the rest of the LM family: MoE and MLA)"),
+    "rwkv6-1.6b": "queue 1, item 6 (the rest of the LM family: RWKV-6)",
 }
 
 
@@ -37,4 +36,4 @@ def get_arch(arch_id: str) -> ArchSpec:
     raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCHS)}")
 
 
-__all__ = ["ARCHS", "NOT_PORTED", "get_arch", "ArchSpec"]
+__all__ = ["ARCHS", "NOT_PORTED", "get_arch", "ArchSpec", "ShapeCell"]

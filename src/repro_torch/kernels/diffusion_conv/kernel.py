@@ -11,7 +11,13 @@ its projection,
 it, a CUDA tensor launches the kernel or raises.  The kernel runs on the
 tensor cores in 3xTF32 (three TF32 products per fp32 product, fp32
 accumulation), which keeps fp32 accuracy.  It has no backward.
-``hop_project.launches`` counts the kernel's launches.
+
+The kernel's register tile covers at most ``MAX_C`` feature columns.  The
+hop is separable in C (``Z_k[..., tile] = S @ Z_{k-1}[..., tile]`` and
+``Y += sum over tiles of Z_k[..., tile] @ W_k[tile, :]``), so
+:func:`hop_project` runs a wider C as equal column tiles of at most
+``MAX_C``, each tile's Y feeding the next tile's launch; every tile reads S
+again.  ``hop_project.launches`` counts the kernel's launches, one a tile.
 """
 from __future__ import annotations
 
@@ -22,7 +28,8 @@ import torch
 from repro_torch.kernels.build import library
 from repro_torch.kernels.common import kernel_defaults
 
-#: Widest feature dim C the kernel's register tile covers.
+#: Widest feature dim C the kernel's register tile covers; wider C runs as
+#: column tiles.
 MAX_C = 128
 
 
@@ -43,11 +50,36 @@ def _entry():
     return lib, fn
 
 
+def column_tiles(c: int) -> list[tuple[int, int]]:
+    """``(lo, hi)`` bounds of the fewest equal column tiles of at most
+    ``MAX_C`` that cover ``c`` feature columns."""
+    n = -(-c // MAX_C)
+    if n <= 1:
+        return [(0, c)]
+    width = -(-c // n)
+    return [(lo, min(lo + width, c)) for lo in range(0, c, width)]
+
+
 def hop_project(s, z, w, y):
     """One fused hop.  s: [N, N], z: [N, B, C], w: [C, H], y: [N, B, H].
 
-    Returns ``(z_next, y_next)``.
+    Returns ``(z_next, y_next)``.  Any C: above ``MAX_C`` the columns run
+    as tiles (:func:`column_tiles`), on the kernel or, for a CPU tensor, on
+    its plain version.
     """
+    tiles = column_tiles(z.shape[2])
+    if len(tiles) == 1:
+        return _hop_tile(s, z, w, y)
+    z_parts = []
+    for lo, hi in tiles:
+        z_part, y = _hop_tile(s, z[..., lo:hi].contiguous(), w[lo:hi].contiguous(), y)
+        z_parts.append(z_part)
+    return torch.cat(z_parts, dim=-1), y
+
+
+def _hop_tile(s, z, w, y):
+    """One launch over at most ``MAX_C`` columns (the plain version on a
+    CPU tensor)."""
     kd = kernel_defaults(z.device)
     if not kd.kernel:
         return hop_project_plain(s, z, w, y)

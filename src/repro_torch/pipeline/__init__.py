@@ -1,7 +1,8 @@
 """Single-device training pipeline, in two layers:
 
 - DataPlane: placed dataset → sampler → deterministic feeds;
-- Engine: the train step with the window gather fused in, fit, evaluate.
+- Engine: the train step with the window gather fused in, checkpoints,
+  fit (with resume and the feed prefetcher), evaluate.
 
 ``build_pipeline`` is the one-call constructor (returns an Engine).
 """
@@ -9,6 +10,7 @@ from repro_torch.pipeline.gathers import GATHERS, resolve_gather
 from repro_torch.pipeline.dataplane import DataPlane, PipelineConfig, build_dataplane
 from repro_torch.pipeline.engine import Engine, build_engine
 from repro_torch.pipeline.pipeline import Pipeline, build_pipeline
+from repro_torch.pipeline.prefetch import FeedPrefetcher, PrefetchPlan
 
 __all__ = [
     "Pipeline",
@@ -20,4 +22,6 @@ __all__ = [
     "build_engine",
     "GATHERS",
     "resolve_gather",
+    "FeedPrefetcher",
+    "PrefetchPlan",
 ]

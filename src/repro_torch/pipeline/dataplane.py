@@ -2,8 +2,9 @@
 
 The data plane owns everything that decides *which window ids reach which
 worker*: the dataset placed on its device, the matching sampler, and the
-deterministic feeds (the sampler's ``feed(rank, epoch)``).  It
-knows nothing about the train step; that is the
+deterministic feeds (the sampler's ``feed(rank, epoch)``), whole or as a
+chunk stream for the prefetch pipeline (:meth:`DataPlane.grid_stream`).
+It knows nothing about the train step; that is the
 :class:`repro_torch.pipeline.engine.Engine`'s job.
 
 This slice of the port runs one device with ``Placement.REPLICATED`` (the
@@ -80,9 +81,34 @@ class DataPlane:
         }
 
     # ----------------------------------------------------------------- feeds
+    def feed(self, rank: int, epoch: int) -> np.ndarray:
+        """[steps, batch_per_rank] window ids for ``rank`` — a pure function
+        of (seed, epoch, rank)."""
+        return self.sampler.feed(rank, epoch)
+
     def epoch_global(self, epoch: int) -> np.ndarray:
         """[steps, world*batch] — single-host assembly of the feed columns."""
         return self.sampler.epoch_global(epoch)
+
+    def epoch_grid(self, epoch: int) -> np.ndarray:
+        """What the train loop iterates this epoch: on one process, the
+        whole global grid."""
+        return self.epoch_global(epoch)
+
+    def feed_stream(self, rank: int, epoch: int, *, start: int = 0,
+                    chunk: int = 8):
+        """Chunk-iterable ``feed(rank, epoch)``: ``[<=chunk, batch]`` row
+        blocks that concatenate exactly to the feed, from row ``start``."""
+        return self.sampler.feed_stream(rank, epoch, start=start, chunk=chunk)
+
+    def grid_stream(self, epoch: int, *, start: int = 0, chunk: int = 8):
+        """Chunk-iterable :meth:`epoch_grid`: ``[<=chunk, width]`` row blocks
+        from row ``start`` (a mid-epoch resume).  The host half of the
+        prefetch pipeline — pure numpy, safe to drain from a background
+        thread; the blocks reassemble exactly to ``epoch_grid(epoch)``."""
+        grid = self.epoch_grid(epoch)
+        for lo in range(start, grid.shape[0], chunk):
+            yield grid[lo:lo + chunk]
 
     # ------------------------------------------------------------ eval feeds
     def eval_pool(self, split: str = "val") -> np.ndarray:
@@ -106,6 +132,29 @@ class DataPlane:
         return hit
 
     # --------------------------------------------------------- data plumbing
+    def host_batch_of_starts(self, window_ids: np.ndarray) -> np.ndarray:
+        """Window ids -> HOST int32 array of start steps: the batch before
+        its copy to the device.  The prefetcher's transfer thread builds it
+        at staleness >= 1 and copies it to the device from a pinned buffer on
+        a side stream (:class:`repro_torch.pipeline.prefetch.FeedPrefetcher`);
+        the bytes equal :meth:`batch_of_starts`'s."""
+        return np.asarray(self.dataset.starts[np.asarray(window_ids)], np.int32)
+
+    def can_defer_transfer(self) -> bool:
+        """Whether the prefetcher may take host batches and copy them to the
+        device itself: always, on the one device this plane places on (the
+        JAX package's multi-process and sharded planes cannot)."""
+        return True
+
+    def prefetch_transfer(self, staleness: int):
+        """The transfer fn the prefetcher runs at this staleness: at 0,
+        :meth:`batch_of_starts` on the consumer thread — the synchronous
+        path's exact op order; at >= 1, :meth:`host_batch_of_starts` on the
+        transfer thread, which then copies the row to the device."""
+        if staleness >= 1 and self.can_defer_transfer():
+            return self.host_batch_of_starts
+        return self.batch_of_starts
+
     def batch_of_starts(self, window_ids: np.ndarray) -> torch.Tensor:
         """Window ids (one epoch grid row) -> int32 tensor of start steps on
         the plane's device."""

@@ -1,11 +1,12 @@
 """Engine — the execution half of the pipeline: the train step with the
-window gather fused in, ``fit`` and ``evaluate``.
+window gather fused in, checkpoints, ``fit`` and ``evaluate``.
 
 The engine owns what the :class:`~repro_torch.pipeline.dataplane.DataPlane`
 does not: the step that gathers (x, y) from the resident series and runs
-loss, gradients and AdamW, and the evaluation over the val/test feeds.
-Checkpointing, elastic restarts and prefetch arrive with later slices of the
-port and raise here when asked for.
+loss, gradients and AdamW, the checkpointer (``loop.ckpt_dir``: ``fit``
+resumes from its latest checkpoint), the prefetch pipeline
+(``loop.prefetch_depth``) and the evaluation over the val/test feeds.
+Elastic restarts arrive with distributed-index-batching and raise here.
 """
 from __future__ import annotations
 
@@ -17,8 +18,10 @@ import torch
 
 from repro_torch.core.index_dataset import IndexDataset
 from repro_torch.core.windows import WindowSpec
+from repro_torch.distributed import Checkpointer, checkpoint_meta, latest_step, restore
 from repro_torch.pipeline.dataplane import DataPlane, PipelineConfig, build_dataplane
 from repro_torch.pipeline.gathers import resolve_gather
+from repro_torch.pipeline.prefetch import FeedPrefetcher, PrefetchPlan
 from repro_torch.train.loop import (combine_weighted, init_train_state,
                                     make_train_step, run_training)
 from repro_torch.tree import tree_map
@@ -65,22 +68,63 @@ class Engine:
         *,
         epochs: int | None = None,
         eval_fn: Callable[[Any], dict] | None | str = "auto",
+        resume: bool = True,
+        history_sink: list | None = None,
     ) -> tuple[Any, list[dict]]:
         """Train from ``init_params`` (copied; the caller's tensors are left
-        as they were).  Returns ``(state, history)`` like ``run_training``.
-        ``eval_fn="auto"`` evaluates val-split MAE at every epoch end."""
+        as they were), or resume from ``loop.ckpt_dir``'s latest checkpoint
+        when ``resume`` and one exists.  Returns ``(state, history)`` like
+        ``run_training``.  ``eval_fn="auto"`` evaluates val-split MAE at
+        every epoch end.  ``history_sink`` mirrors every logged row into a
+        caller-owned list or :class:`~repro_torch.train.loop.JsonlHistorySink`.
+        """
         loop = self.config.loop
         if epochs is not None:
             loop = dataclasses.replace(loop, epochs=epochs)
         params = tree_map(lambda p: p.detach().clone(), self.init_params)
         state = init_train_state(params, self.config.adam)
+        checkpointer = Checkpointer(loop.ckpt_dir) if loop.ckpt_dir else None
+        start_step, start_epoch, start_done = 0, 0, None
+        if resume and loop.ckpt_dir and latest_step(loop.ckpt_dir) is not None:
+            state, start_step = restore(loop.ckpt_dir, state)
+            # Prefer the checkpoint's own (epoch, done_in_epoch) coordinates;
+            # start_step stays the raw, monotonic step counter.
+            meta = checkpoint_meta(loop.ckpt_dir)
+            if "epoch" in meta:
+                start_epoch = int(meta["epoch"])
+                start_done = max(int(meta.get("done_in_epoch", 0)), 0)
+            else:
+                start_epoch = start_step // self.steps_per_epoch
         if eval_fn == "auto":
             eval_fn = (lambda st: {"val_mae": self.evaluate(st["params"])}) \
                 if len(self.dataset.val_windows) > 0 else None
-        return run_training(state=state, train_step=self.train_step,
-                            sampler=self.dataplane,
-                            batch_of_starts=self.dataplane.batch_of_starts,
-                            loop=loop, eval_fn=eval_fn)
+        batch_stream = None
+        if loop.prefetch_depth >= 1:
+            plan = PrefetchPlan(depth=loop.prefetch_depth, staleness=loop.staleness,
+                                chunk=loop.prefetch_chunk)
+
+            def batch_stream(epoch: int, done: int) -> FeedPrefetcher:
+                dp = self.dataplane
+                return FeedPrefetcher(
+                    dp.grid_stream(epoch, start=done, chunk=plan.chunk),
+                    dp.prefetch_transfer(plan.staleness), plan, device=dp.device)
+        try:
+            return run_training(
+                state=state, train_step=self.train_step, sampler=self.dataplane,
+                batch_of_starts=self.dataplane.batch_of_starts, loop=loop,
+                eval_fn=eval_fn, checkpointer=checkpointer,
+                start_epoch=start_epoch, start_step=start_step,
+                start_done_in_epoch=start_done, history_sink=history_sink,
+                batch_stream=batch_stream)
+        except BaseException:
+            # Do not strand the in-flight async checkpoint write: flush it so
+            # a restart resumes from the newest durable step.
+            if checkpointer is not None:
+                try:
+                    checkpointer.wait()
+                except Exception:
+                    pass
+            raise
 
     # ------------------------------------------------------------- evaluation
     @torch.no_grad()
@@ -142,17 +186,13 @@ def build_engine(
     ``loss_fn(params, x, y) -> (loss, metrics)`` is the only model-specific
     piece; the engine supplies (x, y) by fusing the selected window gather
     into the step.  Pass ``dataset=`` to reuse an already-built
-    ``IndexDataset``.
+    ``IndexDataset``.  ``elastic`` raises: elastic restarts arrive with
+    distributed-index-batching (``ROADMAP.md`` queue 1, item 4).
     """
-    later = {"elastic": (elastic is not None, "the elastic/distributed slice"),
-             "loop.ckpt_dir": (bool(config.loop.ckpt_dir),
-                               "the checkpointing slice"),
-             "loop.prefetch_depth": (config.loop.prefetch_depth > 0,
-                                     "the prefetch slice")}
-    for name, (asked, where) in later.items():
-        if asked:
-            raise NotImplementedError(
-                f"{name} is not ported yet; it arrives with {where}")
+    if elastic is not None:
+        raise NotImplementedError(
+            "elastic is not ported yet; it arrives with distributed-index-"
+            "batching (ROADMAP.md queue 1, item 4)")
     dataplane = build_dataplane(raw, spec, config, dataset=dataset)
     train_step, eval_loss = _compile(dataplane, loss_fn, config)
     return Engine(dataplane=dataplane, init_params=init_params,

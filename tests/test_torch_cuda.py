@@ -5,13 +5,16 @@ so it also runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda --noconftest tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import autotune
 from repro_torch.kernels.diffusion_conv import diffusion_conv
-from repro_torch.kernels.diffusion_conv.kernel import hop_project, hop_project_plain
+from repro_torch.kernels.diffusion_conv.kernel import (column_tiles, hop_project,
+                                                       hop_project_plain)
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.linear_scan import kernel as ls_kernel
@@ -77,6 +80,10 @@ HOP_SHAPES = [  # (N, B, C, H)
     (24, 2, 10, 8), (50, 3, 66, 128), (129, 4, 128, 64), (300, 5, 1, 3), (2716, 2, 66, 64),
     # C not a multiple of 8, B not a multiple of the batch elements per block
     (2716, 32, 66, 128), (2716, 7, 66, 64), (129, 3, 128, 64),
+    # C past MAX_C: column tiles of 65 and 96, each tile's Y feeding the next
+    (2716, 8, 130, 64), (2716, 8, 192, 128), (129, 3, 130, 5),
+    # the full PeMS graph (dcrnn-pems): N 11,160, B 8
+    (11160, 8, 128, 128), (11160, 8, 65, 64),
 ]
 
 
@@ -91,7 +98,7 @@ def test_cuda_hop_project_matches_plain(cuda, n, b, c, h):
     before = hop_project.launches
     got = hop_project(s, z, w, y)
     torch.cuda.synchronize()
-    assert hop_project.launches == before + 1
+    assert hop_project.launches == before + len(column_tiles(c))  # one a tile
     want = hop_project_plain(s, z, w, y)
     for a, e in zip(got, want):
         torch.testing.assert_close(a, e, atol=1e-4, rtol=1e-4)
@@ -102,7 +109,10 @@ def test_cuda_hop_project_rejects_what_it_cannot_take(cuda):
     s = torch.eye(4, device=cuda)
     z = torch.zeros(4, 2, 129, device=cuda)
     with pytest.raises(ValueError, match="feature dim"):
-        hop_project(s, z, torch.zeros(129, 3, device=cuda), torch.zeros(4, 2, 3, device=cuda))
+        hop_project(s, z[..., :0], torch.zeros(0, 3, device=cuda),
+                    torch.zeros(4, 2, 3, device=cuda))
+    with pytest.raises(ValueError, match="shape"):  # checked in every tile
+        hop_project(s, z, torch.zeros(129, 3, device=cuda), torch.zeros(4, 2, 4, device=cuda))
     with pytest.raises(ValueError):
         hop_project(s.double(), z[..., :3].double(), torch.zeros(3, 3, device=cuda),
                     torch.zeros(4, 2, 3, device=cuda))
@@ -379,3 +389,55 @@ def test_cuda_failing_kernel_variant_raises_instead_of_being_rejected(cuda, tmp_
     with autotune.autotuning(mode="off"):  # the card's default is the kernel
         with pytest.raises(RuntimeError, match="did not build"):
             flash_attention(q, k, v, impl="auto")
+
+
+@pytest.mark.cuda
+def test_cuda_dcrnn_forward_through_hop_project_matches_plain_hops(cuda):
+    """DCRNN with use_pallas=True (every hop through the kernel: C 66, 65
+    and 2 x hidden, H 2 x hidden and hidden) against the plain hops."""
+    from repro_torch.models import dcrnn
+
+    rng = np.random.default_rng(11)
+    n, hidden = 300, 80  # layer 2 feeds C = 160: two column tiles
+    sup = tuple(torch.as_tensor(_support(rng, n)).to(cuda) for _ in range(2))
+    x = torch.as_tensor(rng.standard_normal((4, 12, n, 2)).astype(np.float32)).to(cuda)
+    cfg = dcrnn.DCRNNConfig(num_nodes=n, hidden=hidden)
+    params = dcrnn.init(torch.Generator().manual_seed(0), cfg, device=cuda)
+    before = hop_project.launches
+    with torch.no_grad():
+        got = dcrnn.apply(params, dataclasses.replace(cfg, use_pallas=True), sup, x)
+        torch.cuda.synchronize()
+        launches = hop_project.launches - before
+        want = dcrnn.apply(params, cfg, sup, x)
+    # 24 cell steps x 2 dconvs x 2 supports x K 2, layer 2's hops in 2 tiles
+    assert launches == 24 * 2 * 2 * 2 * (1 + 2)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("staleness", [1, 2])
+def test_cuda_prefetcher_side_stream_gives_the_synchronous_batches(cuda, staleness):
+    """Staleness >= 1 copies each row from a pinned buffer on the transfer
+    thread's own stream; the consumer's stream waits on the copy's event.
+    The step here reads each batch on the default stream after a long
+    device sleep, so a missing wait would read memory not yet written."""
+    from repro_torch.pipeline import FeedPrefetcher, PrefetchPlan
+
+    rng = np.random.default_rng(12)
+    grid = rng.integers(0, 10**6, size=(40, 64)).astype(np.int32)
+
+    def blocks():
+        for lo in range(0, len(grid), 8):
+            yield grid[lo:lo + 8]
+
+    sync = [torch.as_tensor(row).to(cuda) for row in grid]
+    pf = FeedPrefetcher(blocks(), lambda row: row, PrefetchPlan(staleness=staleness),
+                        device=cuda)
+    got = []
+    for batch in pf:
+        assert batch.device.type == "cuda" and batch.dtype == torch.int32
+        torch.cuda._sleep(100_000)  # the step's stream is busy while copies land
+        got.append(batch * 1)  # consumed on the default stream
+    assert len(got) == len(sync)
+    assert all(torch.equal(a, b) for a, b in zip(got, sync))
+    assert not pf._dev_thread.is_alive()

@@ -128,7 +128,7 @@ def test_flash_tiles_and_hop_rows_are_per_dtype_and_compiled():
     """The card's default flash tile is compiled for both dtypes, the tuner
     offers each dtype only its kernel's tiles, and the hop kernel's row
     tile is fixed in its source (one launch shape)."""
-    from repro_torch.kernels.autotune import _dc_grid, _fa_grid
+    from repro_torch.kernels.autotune import _OPS, _fa_grid
     from repro_torch.kernels.flash_attention.kernel import BF16_BLOCK, BLOCKS
 
     kd = kernel_defaults("cuda")
@@ -137,8 +137,10 @@ def test_flash_tiles_and_hop_rows_are_per_dtype_and_compiled():
     dims = {"b": 2, "s": 512, "h": 16, "hkv": 1, "d": 256}
     assert _fa_grid(dims, kd, torch.bfloat16) == ({"block_q": 64, "block_k": 64},)
     assert {p["block_q"] for p in _fa_grid(dims, kd, torch.float32)} == {32, 64}
-    assert _dc_grid({"c": 128}, kd, torch.float32) == ({},)
-    assert _dc_grid({"c": 256}, kd, torch.float32) == ()
+    (hop,) = [v for v in _OPS["diffusion_conv"].variants() if v.kernel]
+    # one launch shape at every C: above MAX_C the columns run as tiles
+    assert hop.grid({"c": 128}, kd, torch.float32) == ({},)
+    assert hop.grid({"c": 256}, kd, torch.float32) == ({},)
 
 
 def test_library_digest_covers_the_shared_headers(tmp_path, monkeypatch):

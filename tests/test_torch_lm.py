@@ -62,7 +62,7 @@ def test_registry_matches_the_jax_arch_and_names_unported_ones():
     assert (dataclasses.asdict(ours.smoke_config())
             == dataclasses.asdict(theirs.smoke_config()))
     assert ours.lm.param_count() == theirs.lm.param_count()
-    for arch in ("qwen1.5-4b", "grok-1-314b", "rwkv6-1.6b", "dcrnn-pems"):
+    for arch in ("qwen1.5-4b", "grok-1-314b", "rwkv6-1.6b"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             get_arch(arch)
     with pytest.raises(KeyError):

@@ -141,8 +141,6 @@ def test_default_device_is_cuda_and_never_falls_back(slice_setup):
 
 @pytest.mark.parametrize("change", [
     dict(placement=Placement.PARTITIONED),
-    dict(loop=TrainLoopConfig(ckpt_dir="ckpt")),
-    dict(loop=TrainLoopConfig(prefetch_depth=2)),
     dict(gather="lm"),
 ])
 def test_options_of_later_slices_raise(slice_setup, change):
