@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's four main paths through their user entry points, each at
+Drives the port's five main paths through their user entry points, each at
 the full width of a registered arch, with every kernel count set to 0 just
 before a path and read just after it:
 
@@ -47,6 +47,24 @@ before a path and read just after it:
   launched by the dispatched calls, and each result is held against its
   plain version.
 
+- distributed-index-batching at ``pgt-dcrnn-pems-all-la`` width over
+  PeMS-All-LA's uncut series of 105,120 entries (2,284,047,360 bytes): two
+  ranks spawned here share ``cuda:0`` over gloo (the backend the topology
+  gives: NCCL refuses two ranks on one card) and run
+  ``build_pipeline(..., gather="pallas").fit()`` for 5 steps of global
+  batch 32, then ``evaluate(split="val")``, under ``REPLICATED``,
+  ``PARTITIONED`` with and without halo, and ``ONDEMAND``; each rank holds
+  only its placement's resident rows, and per rank and placement the
+  phase prints rows and bytes, peak device memory, step ms, exchange bytes
+  a step and ``window_gather`` launches.  It fails unless ``ONDEMAND``'s
+  losses equal ``REPLICATED``'s bit for bit, every rank's first batch
+  equals the plain gather over the full host series at the global starts,
+  the ranks' val losses are one number and each time-sharded rank keeps at
+  most 0.51 of the series.  Then world 1 over NCCL:
+  ``python -m torch.distributed.run --nproc-per-node 1 -m
+  repro_torch.launch.train --init-distributed --placement partitioned
+  --gather pallas`` at 600 entries.
+
 Phases: device (card name and power limit; TF32 off for matmuls and cuDNN);
 build (the CUDA kernels compiled from ``src/repro_torch``, one nvcc per
 source in parallel, and each library's count of tensor-core ``HMMA``
@@ -65,7 +83,9 @@ PyTorch yardstick where one exists: window_gather and index_select in
 turns; linear_scan at every prefill group shape and at decode beside its
 launch floor, the same launch at [1, 1, 32]).
 
-Cuts: the ST-GNN series has 8,640 entries (30 days of 5-minute bins)
+Cuts: the distributed phase trains on a pool of 160 train windows (every
+k-th one strictly inside each rank's shard, 5 batches of 16 a rank); the
+world-1 launcher run on 600 entries.  The ST-GNN series has 8,640 entries (30 days of 5-minute bins)
 instead of PeMS-All-LA's 105,120, and the train split is cut to the 20
 steps' 640 windows (5 steps' 160 on the dispatch path).  The dcrnn-pems
 series has 104 entries instead of the 105,120 of a year: 81 windows, so one
@@ -1311,6 +1331,250 @@ def phase_dispatch(raw, supports, rg_cfg, counters) -> dict:
     return launches
 
 
+# --------------------------------------------- distributed-index-batching
+DIST_ENTRIES = 105_120  # PeMS-All-LA's full year of 5-minute bins, uncut
+DIST_WORLD = 2          # two processes sharing the one card, over gloo
+DIST_BATCHES = 5        # per-rank batches in the train pool; steps per run
+DIST_RUNS = (("replicated", True), ("partitioned", True), ("partitioned", False),
+             ("ondemand", True))
+DIST_TIMEOUT_S = 900    # the children's collectives, and their join
+DIST_W1_ENTRIES = 600   # the world-1 launcher run: 577 windows, 12 steps of 32
+
+
+def dist_pool(entries: int) -> np.ndarray:
+    """The train pool of the distributed phase: from each rank's shard, the
+    train windows strictly interior to it (so with and without halo alike),
+    every k-th, k chosen so that the rank holds DIST_BATCHES batches of
+    BATCH // DIST_WORLD windows.  A prefix of the train split would leave
+    rank 1's shard empty."""
+    from repro_torch.core.distributed import local_window_ids
+    from repro_torch.core.windows import WindowSpec, split_windows, window_starts
+
+    spec = WindowSpec(horizon=HORIZON, input_len=HORIZON)
+    train, _, _ = split_windows(len(window_starts(entries, spec)), 0.7, 0.1)
+    n = DIST_BATCHES * (BATCH // DIST_WORLD)
+    parts = []
+    for r in range(DIST_WORLD):
+        ids = local_window_ids(entries, spec, r, DIST_WORLD, halo=False)
+        ids = ids[np.isin(ids, train)]
+        parts.append(ids[::len(ids) // n][:n])
+    return np.concatenate(parts)
+
+
+def dist_child(rank: int, port: int, series_path: str, pool, out_path: str) -> None:
+    """One rank of the distributed phase: PGT-DCRNN at full width over the
+    uncut series, each placement built, trained DIST_BATCHES steps and
+    evaluated once; the numbers go to ``out_path`` as JSON."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.core import IndexDataset, WindowSpec
+    from repro_torch.core.distributed import Placement, choose_backend
+    from repro_torch.kernels.window_gather.kernel import window_gather
+    from repro_torch.kernels.window_gather.ref import window_gather_ref
+    from repro_torch.models import pgt_dcrnn
+    from repro_torch.optim import AdamConfig
+    from repro_torch.pipeline import PipelineConfig, build_pipeline
+    from repro_torch.pipeline.gathers import EXCHANGE_IMPL, exchange_windows
+    from repro_torch.train import TrainLoopConfig
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    backend = choose_backend(device, DIST_WORLD)
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=DIST_WORLD,
+                            timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    try:
+        _, supports = graph()
+        cfg = pgt_dcrnn.PGTDCRNNConfig(num_nodes=NODES, in_features=FEATURES,
+                                       out_features=1, hidden=HIDDEN,
+                                       max_diffusion_step=K_HOPS,
+                                       input_len=HORIZON, horizon=HORIZON)
+        spec = WindowSpec(horizon=HORIZON, input_len=HORIZON)
+        t0 = time.perf_counter()
+        raw = np.load(series_path, mmap_mode="r")
+        ds = dataclasses.replace(IndexDataset.from_raw(raw, spec), train_windows=pool)
+        whole = torch.as_tensor(ds.series)  # the full host series, for the checks
+        prep_s = time.perf_counter() - t0
+
+        def loss_fn(p, x, y):
+            return pgt_dcrnn.loss_fn(p, cfg, supports, x, y), {}
+
+        out = {"backend": backend, "prep_s": prep_s, "runs": []}
+        for placement, halo in DIST_RUNS:
+            params = pgt_dcrnn.init(torch.Generator().manual_seed(SEED), cfg, device=device)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            pipe = build_pipeline(
+                None, spec, loss_fn, params,
+                PipelineConfig(batch_per_rank=BATCH // DIST_WORLD,
+                               placement=Placement(placement), halo=halo,
+                               gather="pallas", seed=SEED, device=str(device),
+                               adam=AdamConfig(lr=1e-3),
+                               loop=TrainLoopConfig(epochs=1, log_every=1)),
+                dataset=ds)
+            dp = pipe.dataplane
+            window_gather.launches = 0
+            with StepTimer() as timer:
+                state, history = pipe.fit(eval_fn=None)
+            torch.cuda.synchronize()
+            launches = window_gather.launches
+            val = pipe.evaluate(state["params"], split="val")
+            peak = torch.cuda.max_memory_allocated()
+            # The first batch of this rank, gathered as its train step does
+            # (the kernel from its resident rows, or the exchange), against
+            # the plain gather over the full host series at the global starts.
+            row = dp.epoch_grid(0)[0]
+            starts = dp.batch_of_starts(row)
+            if dp.train_exchange:
+                lo = dp.dataset.origin
+                got = exchange_windows(dp.dataset.series, starts, span=spec.span,
+                                       owned=(dp.owned[0] - lo, dp.owned[1] - lo),
+                                       impl=EXCHANGE_IMPL["pallas"])[dp.block]
+                ids = row[dp.block]
+            else:
+                got = window_gather(dp.dataset.series.reshape(len(dp.dataset.series), -1),
+                                    starts, span=spec.span)
+                ids = row
+            torch.cuda.synchronize()
+            want = window_gather_ref(whole, torch.as_tensor(ds.starts[ids]), span=spec.span)
+            d = pipe.describe()
+            out["runs"].append({
+                "placement": placement, "halo": halo, "sampler": d["sampler"],
+                "rows": list(d["resident_rows"]), "bytes": d["resident_bytes"],
+                "peak": peak, "losses": [r["loss"] for r in history if "epoch_time_s" not in r],
+                "val": val, "step_ms": timer.ms, "exchange_bytes": dp.exchange_bytes,
+                "launches": launches, "steps": pipe.steps_per_epoch,
+                "first_batch_equal": bool(torch.equal(got.cpu().reshape(want.shape), want)),
+            })
+            del pipe, dp, state, params, starts, got
+        with open(out_path, "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_distributed(adj, work) -> int:
+    """World 2 on the one card (two processes over gloo, spawned here) under
+    each placement, then world 1 over NCCL through the launcher under
+    ``torch.distributed.run``.  Returns window_gather's launches on both
+    ranks' train runs."""
+    import multiprocessing
+    import socket
+
+    from repro_torch.data import make_traffic_series
+
+    t0 = time.perf_counter()
+    raw = make_traffic_series(DIST_ENTRIES, NODES, FEATURES, seed=SEED, adjacency=adj)
+    series_path = os.path.join(work, "series.npy")
+    np.save(series_path, raw)
+    del raw
+    pool = dist_pool(DIST_ENTRIES)
+    log(f"distributed: PeMS-All-LA-shaped series [{DIST_ENTRIES}, {NODES}, {FEATURES}] "
+        f"({DIST_ENTRIES * NODES * FEATURES * 4:,} bytes) made and saved in "
+        f"{time.perf_counter() - t0:.1f} s; CUT: the train pool is every k-th train window "
+        f"strictly inside each rank's shard, {DIST_BATCHES} batches of "
+        f"{BATCH // DIST_WORLD} a rank ({len(pool)} windows, ids {pool[0]}..{pool[-1]}), "
+        f"so each run is {DIST_BATCHES} steps of global batch {BATCH}")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    outs = [os.path.join(work, f"rank{r}.json") for r in range(DIST_WORLD)]
+    procs = [ctx.Process(target=dist_child, args=(r, port, series_path, pool, outs[r]))
+             for r in range(DIST_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        deadline = time.monotonic() + DIST_TIMEOUT_S
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    codes = [p.exitcode for p in procs]
+    check(codes == [0] * DIST_WORLD, f"distributed children exited with {codes}")
+    ranks = []
+    for path in outs:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    log(f"distributed: world {DIST_WORLD} on cuda:0, backend {ranks[0]['backend']} (the "
+        f"topology's: {DIST_WORLD} processes, {torch.cuda.device_count()} card); wall "
+        f"{time.perf_counter() - t0:.1f} s, host set-up a rank "
+        f"{max(r['prep_s'] for r in ranks):.1f} s")
+    check(all(r["backend"] == "gloo" for r in ranks), "world 2 on one card must use gloo")
+    launches = 0
+    replicated = [r["runs"][0] for r in ranks]
+    for i, (placement, halo) in enumerate(DIST_RUNS):
+        runs = [r["runs"][i] for r in ranks]
+        name = placement + ("" if halo or placement != "partitioned" else " (no halo)")
+        for rank, run in enumerate(runs):
+            share = run["bytes"] / replicated[rank]["bytes"]
+            log(f"distributed: {name} rank {rank}: rows [{run['rows'][0]}, {run['rows'][1]}) "
+                f"{run['bytes']:,} bytes ({share:.4f} of replicated), {run['sampler']}; "
+                f"peak device memory {run['peak']:,} bytes ({run['peak'] / 2**30:.3f} GiB); "
+                f"step {statistics.median(run['step_ms'][1:]):.3f} ms (median of steps "
+                f"2..{len(run['step_ms'])}; all: "
+                f"{', '.join(f'{t:.1f}' for t in run['step_ms'])}); exchange "
+                f"{run['exchange_bytes']:,} bytes a step; window_gather launches "
+                f"{run['launches']}; loss {run['losses'][0]:.6f} -> {run['losses'][-1]:.6f}; "
+                f"val {run['val']!r}")
+            check(run["steps"] == DIST_BATCHES and len(run["losses"]) == DIST_BATCHES
+                  and all(np.isfinite(run["losses"])), f"{name} rank {rank}: losses "
+                                                       f"{run['losses']}")
+            check(run["launches"] >= DIST_BATCHES, f"{name} rank {rank}: the train steps "
+                                                   f"did not go through window_gather")
+            check(run["first_batch_equal"], f"{name} rank {rank}: the first batch differs "
+                                            f"from the plain gather over the full series")
+            if placement != "replicated":
+                check(share <= 0.51, f"{name} rank {rank} keeps {share:.4f} of the series")
+            launches += run["launches"]
+        check(runs[0]["val"] == runs[1]["val"], f"{name}: val losses differ between "
+                                                f"ranks: {runs[0]['val']} {runs[1]['val']}")
+        check(runs[0]["losses"] == runs[1]["losses"], f"{name}: ranks log different losses")
+        if placement == "ondemand":
+            same = all(run["losses"] == rep["losses"] for run, rep in zip(runs, replicated))
+            log(f"distributed: ondemand losses {'equal' if same else 'DIFFER from'} "
+                f"replicated's bit for bit on both ranks")
+            check(same, "ondemand losses differ from replicated's")
+    log("distributed: every first batch equals the plain gather over the full host "
+        "series at the global starts; every val loss is one number across ranks")
+
+    # World 1 over NCCL through the launcher under torch.distributed.run.
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    hist = os.path.join(work, "w1.jsonl")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "1",
+           "--master-addr", "127.0.0.1", "--master-port", str(port),
+           "-m", "repro_torch.launch.train", "--init-distributed", "--placement",
+           "partitioned", "--gather", "pallas", "--arch", "pgt-dcrnn-pems-all-la",
+           "--entries", str(DIST_W1_ENTRIES), "--batch", str(BATCH), "--seed", str(SEED),
+           "--lr", "1e-3", "--log-every", "1", "--history-out", hist]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600,
+                         env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+    for line in run.stdout.splitlines():
+        log(f"  launcher: {line}")
+    check(run.returncode == 0, f"world-1 launcher run exited {run.returncode}: "
+                               f"{run.stderr[-3000:]}")
+    check("backend nccl on cuda:0" in run.stdout, "world 1 on its own card must use nccl")
+    with open(hist) as f:
+        rows = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in rows if "epoch_time_s" not in r]
+    log(f"distributed: world 1 over NCCL through the launcher: {len(losses)} steps, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, val MAE {rows[-1].get('val_mae')}; wall "
+        f"{time.perf_counter() - t0:.1f} s; CUT: {DIST_W1_ENTRIES} entries")
+    check(len(losses) > 0 and all(np.isfinite(losses)), f"world-1 losses {losses}")
+    return launches
+
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -1410,6 +1674,16 @@ def main() -> int:
         raw, supports, rg_cfg, (window_gather, hop_project, linear_scan, flash_attention))
     kernels.append(phase_flash_times(rg_cfg, dispatch_launches["flash_attention"],
                                      flash_err))
+    torch.cuda.empty_cache()
+
+    # Distributed-index-batching: each child rank sets window_gather's count
+    # to 0 before each placement's train run and reads it after; the sum of
+    # the ranks' counts joins the kernel's launches.
+    with tempfile.TemporaryDirectory(prefix="dist-", dir=os.path.join(ROOT, "build")) as work:
+        dist_launches = phase_distributed(adj, work)
+    log(f"distributed path launches: window_gather {dist_launches} (both ranks, "
+        f"{len(DIST_RUNS)} placements)")
+    kernels[0]["launches"] += dist_launches
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

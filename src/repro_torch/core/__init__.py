@@ -1,13 +1,14 @@
-"""Core of the paper's contribution: index-batching on one device."""
+"""Core of the paper's contribution: index-batching and its distributed forms."""
 from repro_torch.core.batching import (
     gather_batch,
     gather_batch_fused,
     gather_batch_take,
     materialize_windows,
 )
-from repro_torch.core.distributed import Placement
+from repro_torch.core.distributed import Placement, local_time_range, resident_rows
 from repro_torch.core.index_dataset import IndexDataset
-from repro_torch.core.sampler import EvalFeeds, GlobalShuffleSampler, ShardInfo
+from repro_torch.core.sampler import (EvalFeeds, GlobalShuffleSampler,
+                                      LocalBatchShuffleSampler, ShardInfo)
 from repro_torch.core.windows import WindowSpec, index_batching_bytes, materialized_bytes, num_windows
 
 __all__ = [
@@ -16,6 +17,7 @@ __all__ = [
     "Placement",
     "EvalFeeds",
     "GlobalShuffleSampler",
+    "LocalBatchShuffleSampler",
     "ShardInfo",
     "gather_batch",
     "gather_batch_fused",
@@ -24,4 +26,6 @@ __all__ = [
     "num_windows",
     "materialized_bytes",
     "index_batching_bytes",
+    "local_time_range",
+    "resident_rows",
 ]

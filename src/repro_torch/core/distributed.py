@@ -1,15 +1,156 @@
-"""Series placements of distributed-index-batching (paper §4.2, §5.4).
+"""Dataset placements of distributed-index-batching (paper §4.2, §5.4).
 
-Only the names live here so far: the single-device pipeline runs
-``REPLICATED``, and the time-sharded placements arrive with
-distributed-index-batching over ``torch.distributed``.
+Three placements, matching the paper's three distributed designs, each
+trained as data parallel over ``torch.distributed`` (one process a rank;
+gradients all-reduced before AdamW):
+
+- ``REPLICATED``  — distributed-index-batching (§4.2): every rank holds the
+  whole standardized series on its device.  Window gathers are local, global
+  shuffling costs no communication; the step's only collective is the
+  gradient all-reduce.
+- ``PARTITIONED`` — generalized-distributed-index-batching (§5.4): the series
+  is split along TIME (``local_time_range``) and each rank keeps only its
+  shard, plus, with ``halo``, the next shard's first ``span - 1`` rows, so
+  that a window starting near the shard's end is still local.  Samplers draw
+  each rank's windows from its own shard (local batch shuffling), so train
+  gathers never leave the resident rows.
+- ``ONDEMAND``    — the paper's DDP baseline: time-sharded like
+  PARTITIONED, but windows drawn *globally*, so the rows of every batch are
+  exchanged between ranks each step (``pipeline/gathers.exchange_windows``).
+
+:func:`resident_rows` is the one definition of which ``[lo, hi)`` time rows a
+rank keeps on its device; :func:`local_time_range` the rows it OWNS (the
+shards partition the series, so the exchange writes each row exactly once).
+
+The JAX package's ``data_axes``, ``batch_sharding`` and ``series_sharding``
+describe XLA meshes and ``NamedSharding``s, which have no counterpart here:
+a rank holds a plain tensor of its resident rows, and the process group
+(:func:`process_info`) takes the mesh's place.  :func:`dp_size` reads the
+group's size instead of a mesh's data axes.
 """
 from __future__ import annotations
 
 import enum
+import os
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.core.windows import WindowSpec
 
 
 class Placement(enum.Enum):
     REPLICATED = "replicated"
     PARTITIONED = "partitioned"
     ONDEMAND = "ondemand"
+
+
+def process_info() -> tuple[int, int]:
+    """``(rank, size)`` of this process in the default process group, or
+    ``(0, 1)`` when no group is initialised."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def dp_size() -> int:
+    """Data-parallel size: the process group's world size, or 1 without one."""
+    return process_info()[1]
+
+
+def local_time_range(entries: int, rank: int, world: int) -> tuple[int, int]:
+    """[start, end) of the series shard owned by ``rank`` under PARTITIONED."""
+    per = entries // world
+    rem = entries % world
+    start = rank * per + min(rank, rem)
+    return start, start + per + (1 if rank < rem else 0)
+
+
+def local_window_ids(
+    entries: int, spec: WindowSpec, rank: int, world: int, *, halo: bool = True
+) -> np.ndarray:
+    """Window ids fully contained in rank's shard (PARTITIONED placement).
+
+    ``halo=True`` lets a window start anywhere in the local range even if it
+    spills ``span−1`` steps into the next shard — the rank then keeps those
+    rows too (:func:`resident_rows`).  ``halo=False`` keeps windows strictly
+    interior, with slightly fewer samples.
+    """
+    start, end = local_time_range(entries, rank, world)
+    last_valid = entries - spec.span  # last legal window start globally
+    hi = min(end - (0 if halo else spec.span - 1), last_valid + 1)
+    lo = min(start, last_valid + 1)
+    return np.arange(lo, max(hi, lo), dtype=np.int32)
+
+
+def resident_rows(
+    placement: Placement,
+    entries: int,
+    spec: WindowSpec,
+    rank: int,
+    world: int,
+    *,
+    halo: bool = True,
+    feed_ids: np.ndarray | None = None,
+) -> tuple[int, int]:
+    """``[lo, hi)``: the time rows ``rank`` keeps on its device.
+
+    - ``REPLICATED``: every row.
+    - ``ONDEMAND``: its shard, ``local_time_range``; windows reach the other
+      rows through the exchange.
+    - ``PARTITIONED``: its shard, with ``halo`` also the next shard's first
+      ``span - 1`` rows (the shard-aligned sampler's halo windows read
+      them), widened to cover every window its feed can draw: ``feed_ids``,
+      the START STEPS of the rank's whole feed domain (None takes
+      ``local_window_ids(..., halo)``).  With the shard-aligned sampler the
+      feed lies inside the shard and its halo; with the count-split
+      fallback the partition sets the extent.
+    """
+    if placement is Placement.REPLICATED:
+        return 0, entries
+    lo, hi = local_time_range(entries, rank, world)
+    if placement is Placement.ONDEMAND:
+        return lo, hi
+    ids = (local_window_ids(entries, spec, rank, world, halo=halo)
+           if feed_ids is None else np.asarray(feed_ids))
+    if halo:
+        hi = min(hi + spec.span - 1, entries)
+    if len(ids):
+        lo = min(lo, int(ids.min()))
+        hi = max(hi, int(ids.max()) + spec.span)
+    return lo, hi
+
+
+def choose_backend(device: torch.device, local_world: int) -> str:
+    """The collective backend for ``local_world`` processes of one host on
+    ``device``: ``nccl`` when each has a card of its own, ``gloo`` when they
+    share a card (NCCL refuses two ranks on one device) or run on the CPU.
+    The choice follows the topology alone and is never revised after a
+    failure."""
+    if device.type == "cuda" and local_world <= torch.cuda.device_count():
+        return "nccl"
+    return "gloo"
+
+
+def init_from_env(device: str | torch.device) -> tuple[torch.device, str]:
+    """Join the process group that ``torch.distributed.run`` describes in the
+    environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+    ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``).
+
+    Returns ``(device, backend)``: on ``cuda``, local rank ``i`` takes card
+    ``i`` (``nccl``), or, when the host's processes outnumber its cards,
+    card ``i % cards`` (``gloo``).  A missing variable raises ``KeyError``.
+    """
+    dev = torch.device(device)
+    local_rank = int(os.environ["LOCAL_RANK"])
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", os.environ["WORLD_SIZE"]))
+    backend = choose_backend(dev, local_world)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", local_rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method="env://",
+                            rank=int(os.environ["RANK"]),
+                            world_size=int(os.environ["WORLD_SIZE"]),
+                            **({"device_id": dev} if backend == "nccl" else {}))
+    return dev, backend

@@ -3,7 +3,9 @@
 Holds exactly what eq. (2) budgets for: one standardized copy of the series and
 the int32 start-index array.  ``to_device`` realises GPU-index-batching: the
 series is placed on the card once, before training, and every batch is
-gathered there from int32 window starts.
+gathered there from int32 window starts.  ``to_device(rows=(lo, hi))`` places
+only those time rows (a rank's share under the distributed placements) and
+records their origin ``lo``; ``entries`` stays the whole series' length.
 """
 from __future__ import annotations
 
@@ -27,6 +29,8 @@ class IndexDataset:
     train_windows: np.ndarray
     val_windows: np.ndarray
     test_windows: np.ndarray
+    origin: int = 0  # first time row ``series`` holds
+    total_entries: int | None = None  # whole series' rows; None: series is whole
 
     # ------------------------------------------------------------------ build
     @classmethod
@@ -49,22 +53,45 @@ class IndexDataset:
         return cls(series, starts, spec, scaler, tr, va, te)
 
     # -------------------------------------------------------------- placement
-    def to_device(self, device: str | torch.device = "cuda") -> "IndexDataset":
-        """GPU-index-batching: one host→device transfer of the compact series."""
+    def to_device(self, device: str | torch.device = "cuda", *,
+                  rows: tuple[int, int] | None = None) -> "IndexDataset":
+        """GPU-index-batching: one host→device transfer of the compact series,
+        or of its time rows ``[lo, hi)`` only.  Only the slice is copied to
+        the device; the returned dataset holds no reference to the host
+        series, which the caller may then drop.  The scaler is the one fitted
+        on the whole train split before the slice."""
         dev = resolve_device(device)
-        return dataclasses.replace(self, series=torch.as_tensor(self.series).to(dev))
+        entries = self.entries
+        lo, hi = (0, entries) if rows is None else rows
+        if not 0 <= lo < hi <= entries:
+            raise ValueError(f"rows [{lo}, {hi}) outside the series' {entries} rows")
+        if self.total_entries is not None:
+            raise ValueError("to_device places rows of a whole series only")
+        series = self.series[lo:hi]
+        return dataclasses.replace(
+            self, series=torch.as_tensor(series).to(dev), origin=lo,
+            total_entries=None if (lo, hi) == (0, entries) else entries)
 
     # ------------------------------------------------------------- accounting
     @property
     def entries(self) -> int:
+        """Rows of the whole series (also when only a slice is placed)."""
+        if self.total_entries is not None:
+            return self.total_entries
         return self.series.shape[0]
+
+    @property
+    def resident_rows(self) -> tuple[int, int]:
+        """``[lo, hi)``: the time rows ``series`` holds."""
+        return self.origin, self.origin + self.series.shape[0]
 
     @property
     def n_windows(self) -> int:
         return len(self.starts)
 
     def nbytes_index(self) -> int:
-        """Actual bytes of this representation (series + index array)."""
+        """Bytes this representation holds: the resident series rows plus the
+        index array."""
         return int(self.series.nbytes) + self.starts.nbytes
 
     def nbytes_materialized(self) -> int:

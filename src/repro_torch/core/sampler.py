@@ -1,9 +1,13 @@
-"""Epoch samplers: communication-free global shuffling (paper §4.2).
+"""Epoch samplers: global shuffling vs local batch shuffling (paper §4.2, §5.4).
 
 *Global shuffling* (distributed-index-batching): every epoch draws a fresh
 permutation of **all** training windows; rank r takes the r-th slice.  Because
 each worker holds the full series, this costs zero communication — the paper's
 key scalability win.
+
+*Local batch shuffling* (generalized-distributed-index-batching): each rank owns
+a fixed, contiguous window partition; only the *order of batches* inside the
+partition is shuffled between epochs (Table 5 shows accuracy parity).
 
 Samplers are deterministic functions of (seed, epoch), pure numpy, and draw
 exactly the permutations of the JAX package's samplers, so both packages
@@ -18,9 +22,6 @@ rank-major column blocks, deterministically and without shuffling.
 Feeds are also CHUNK-ITERABLE (:class:`FeedStream`): ``feed_stream(rank,
 epoch)`` yields successive row blocks that concatenate exactly to
 ``feed(rank, epoch)``.
-
-The generalized variant (local batch shuffling over fixed per-rank
-partitions) arrives with distributed-index-batching.
 """
 from __future__ import annotations
 
@@ -140,3 +141,53 @@ class GlobalShuffleSampler(EvalFeeds):
         perm = _rng(self.seed, epoch).permutation(self.window_ids)
         n = self.steps_per_epoch * self.batch * self.shard.world
         return perm[:n].reshape(self.steps_per_epoch, self.shard.world * self.batch)
+
+
+class LocalBatchShuffleSampler(EvalFeeds):
+    """Generalized variant: fixed per-rank partition, shuffled batch order."""
+
+    def __init__(self, window_ids: np.ndarray, batch_per_rank: int, shard: ShardInfo, *, seed: int = 0):
+        ids = np.asarray(window_ids, dtype=np.int32)
+        parts = np.array_split(ids, shard.world)
+        self.window_ids = ids
+        self.batch = batch_per_rank
+        self.shard = shard
+        self.seed = seed
+        self.steps_per_epoch = min(len(p) for p in parts) // batch_per_rank
+        if self.steps_per_epoch == 0:
+            raise ValueError("partition smaller than one batch")
+        n = self.steps_per_epoch * batch_per_rank
+        self._rank_batches = [p[:n].reshape(self.steps_per_epoch, batch_per_rank)
+                              for p in parts]
+
+    def feed(self, rank: int, epoch: int) -> np.ndarray:
+        """[steps, batch] for ``rank``: its fixed partition's batches in the
+        (seed, epoch) order — identical on every host that derives it."""
+        order = _rng(self.seed, epoch).permutation(self.steps_per_epoch)
+        return self._rank_batches[rank][order]
+
+    def domain(self, rank: int) -> np.ndarray:
+        """Every window id ``feed(rank, e)`` can hold, for any epoch."""
+        return self._rank_batches[rank].reshape(-1)
+
+    def epoch(self, epoch: int) -> np.ndarray:
+        return self.feed(self.shard.rank, epoch)
+
+    def epoch_global(self, epoch: int) -> np.ndarray:
+        """[steps, world*batch] rank-major assembly of every rank's feed:
+        column block r is exactly ``feed(r, epoch)``."""
+        return np.concatenate(
+            [self.feed(r, epoch) for r in range(self.shard.world)], axis=1)
+
+
+def local_shuffle_sampler(window_ids, batch_per_rank, shard, *, seed=0):
+    """Classic local shuffling (shuffle *samples* within a fixed partition) —
+    included for the Table-5 comparison axis."""
+
+    class _S(LocalBatchShuffleSampler):
+        def feed(self, rank: int, epoch: int) -> np.ndarray:
+            flat = self._rank_batches[rank].reshape(-1)
+            perm = _rng(self.seed, epoch).permutation(flat)
+            return perm.reshape(self.steps_per_epoch, self.batch)
+
+    return _S(window_ids, batch_per_rank, shard, seed=seed)

@@ -10,6 +10,11 @@
   readable-but-corrupt checkpoint.
 - **Retention**: the ``keep`` most recent steps are retained, older ones
   pruned.
+- **One writer**: under ``torch.distributed`` every rank holds a
+  ``Checkpointer`` and calls ``save`` at the same steps, but only process 0
+  copies and writes; ``wait`` then ends in a barrier, so no rank goes on
+  while a write is in flight, and every rank can ``restore`` what process 0
+  wrote.
 
 Format 1, as the JAX package writes and reads it: ``arrays.npz`` keyed by
 each leaf's ``/``-joined tree path (``"params/encoder/0/ru/w"``, dict keys
@@ -32,7 +37,9 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.core.distributed import process_info
 from repro_torch.device import resolve_device
 from repro_torch.tree import tree_leaves, tree_paths, tree_unflatten
 
@@ -84,7 +91,9 @@ def _sha256(path: str) -> str:
 
 
 class Checkpointer:
-    """Async checkpoint writer with atomic manifests and retention."""
+    """Async checkpoint writer with atomic manifests and retention; under a
+    process group, process 0 writes and the others only keep step with it
+    (see the module docstring)."""
 
     def __init__(self, directory: str, *, keep: int = 3, async_write: bool = True):
         self.dir = directory
@@ -93,14 +102,20 @@ class Checkpointer:
         os.makedirs(directory, exist_ok=True)
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
+        rank, size = process_info()
+        self.writer = rank == 0
+        self._grouped = size > 1
 
     def save(self, state: Any, *, step: int, meta: dict | None = None) -> None:
         """``meta``: JSON-serialisable run coordinates stored in the manifest
         (e.g. ``{epoch, done_in_epoch}``), read back with
-        :func:`checkpoint_meta`."""
+        :func:`checkpoint_meta`.  A collective call under a process group:
+        every rank calls it at the same steps."""
         # Wait BEFORE the host copy: holding a new snapshot while the
         # previous write still holds its own would double host memory.
         self.wait()
+        if not self.writer:
+            return
         flat = _flatten(state)
         if self.async_write:
             self._thread = threading.Thread(
@@ -108,7 +123,7 @@ class Checkpointer:
             self._thread.start()
         else:
             self._write(flat, step, meta)
-            self.wait()  # surface a sync-write failure immediately
+            self.flush()  # surface a sync-write failure immediately
 
     def _write(self, flat: dict[str, np.ndarray], step: int,
                meta: dict | None = None) -> None:
@@ -140,7 +155,14 @@ class Checkpointer:
             shutil.rmtree(os.path.join(self.dir, f"step_{s:010d}"), ignore_errors=True)
 
     def wait(self) -> None:
-        """Join the in-flight write; raise if it failed."""
+        """Join the in-flight write; raise if it failed.  Under a process
+        group, then a barrier (a collective call: every rank calls it)."""
+        self.flush()
+        if self._grouped:
+            dist.barrier()
+
+    def flush(self) -> None:
+        """Join the in-flight write, with no collective; raise if it failed."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None

@@ -1,9 +1,12 @@
-"""End-to-end training launcher of the port, on one device.
+"""End-to-end training launcher of the port, on one device or under
+``torch.distributed.run``.
 
 Runs the paper's workflow — synthetic data gen → index-batching
-preprocessing → GPU-index-batching placement → training with global
-shuffling — through ``repro_torch.pipeline``, with the JAX package
-launcher's flags and defaults: step-granular checkpoints (``--ckpt-dir``,
+preprocessing → GPU-index-batching placement → distributed-index-batching
+training — through ``repro_torch.pipeline``, with the JAX package
+launcher's flags and defaults: the dataset placement (``--placement``
+replicated | partitioned | ondemand, ``--no-halo``), step-granular
+checkpoints (``--ckpt-dir``,
 ``--ckpt-every``) that ``--resume`` continues from mid-epoch, bit for bit;
 a crash-durable JSONL history (``--history-out``: one fsynced row per line,
 duplicates of a resumed epoch tail dropped); and the feed prefetcher
@@ -11,15 +14,25 @@ duplicates of a resumed epoch tail dropped); and the feed prefetcher
 
 It runs the ST-GNN archs (``dcrnn-pems``, ``pgt-dcrnn-pems-all-la``) on
 ``--device`` (``cuda`` unless the caller asks for ``cpu``; no fallback).
-What later slices bring raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item: the LM archs and ``--smoke``; the elastic and
-multi-process flags and the sharded placements.  Two differences from the
+With ``--init-distributed`` it joins the process group that
+``torch.distributed.run`` describes in the environment: each process is one
+rank, takes card ``LOCAL_RANK`` (or shares a card when the host has fewer
+cards than processes), and trains its own per-rank feed; ``--batch`` is the
+GLOBAL batch and must divide by the world size.  The collective backend
+follows the topology — ``nccl`` when every rank has a card of its own,
+``gloo`` when ranks share a card or run on the CPU — and is printed at
+start.  Process 0 alone writes checkpoints and the history.  What later
+slices bring raises ``NotImplementedError`` naming its ``ROADMAP.md`` item:
+the LM archs and ``--smoke``; the elastic flags.  Two differences from the
 JAX launcher: ``--tuning-dir`` defaults to the port's own cache directory
 (``build/tuning``, never ``results/``), and ``--log-every`` sets the
 history's step-row cadence (the JAX launcher fixes it at 10, the default
 here).
 
 Examples:
+  python -m torch.distributed.run --standalone --nproc-per-node 2 \\
+      -m repro_torch.launch.train --init-distributed --device cpu \\
+      --arch dcrnn-pems --nodes 9 --entries 300 --batch 8 --placement ondemand
   python -m repro_torch.launch.train --arch dcrnn-pems --entries 100 \\
       --batch 8 --gather pallas --ckpt-dir /tmp/ck --ckpt-every 2 \\
       --history-out /tmp/h.jsonl
@@ -37,6 +50,7 @@ import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.core import Placement, WindowSpec
+from repro_torch.core.distributed import dp_size, init_from_env, process_info
 from repro_torch.data import (gaussian_adjacency, make_traffic_series,
                               random_sensor_coords, transition_matrices)
 from repro_torch.device import resolve_device
@@ -47,26 +61,24 @@ from repro_torch.optim import AdamConfig, warmup_cosine
 from repro_torch.pipeline import PipelineConfig, build_pipeline
 from repro_torch.train.loop import JsonlHistorySink, TrainLoopConfig
 
-_DISTRIBUTED = "ROADMAP.md queue 1, item 4 (distributed-index-batching)"
+_ELASTIC = ("ROADMAP.md queue 1, item 4b (elastic restarts, heartbeats and "
+            "leader succession)")
 _LM = "ROADMAP.md queue 1, item 6 (the rest of the LM family and LM training)"
 
 #: flags of later slices: (argparse dest, its default, where it is queued)
 _LATER = (
-    ("elastic", False, _DISTRIBUTED),
-    ("heartbeat", None, _DISTRIBUTED),
-    ("heartbeat_timeout", 60.0, _DISTRIBUTED),
-    ("elastic_remesh", "inprocess", _DISTRIBUTED),
-    ("target_world", 0, _DISTRIBUTED),
-    ("plan_out", None, _DISTRIBUTED),
-    ("init_distributed", False, _DISTRIBUTED),
-    ("placement", Placement.REPLICATED.value, _DISTRIBUTED),
-    ("no_halo", False, _DISTRIBUTED),
+    ("elastic", False, _ELASTIC),
+    ("heartbeat", None, _ELASTIC),
+    ("heartbeat_timeout", 60.0, _ELASTIC),
+    ("elastic_remesh", "inprocess", _ELASTIC),
+    ("target_world", 0, _ELASTIC),
+    ("plan_out", None, _ELASTIC),
     ("smoke", False, _LM),
 )
 
 
 def _train_stgnn(arch, args, adam, sched, loop: TrainLoopConfig, sink):
-    """The pipeline path: global-shuffle sampler, resident series, the
+    """The pipeline path: the placement's sampler and resident rows, the
     window gather fused into the step."""
     mcfg = arch.model
     if args.nodes:
@@ -91,11 +103,22 @@ def _train_stgnn(arch, args, adam, sched, loop: TrainLoopConfig, sink):
     def loss_fn(p, x, y):
         return mod.loss_fn(p, mcfg, supports, x, y), {}
 
+    # --batch is the GLOBAL batch; the pipeline takes a per-rank size
+    dp = dp_size()
+    if args.batch % dp:
+        raise SystemExit(f"--batch {args.batch} not divisible by "
+                         f"data-parallel size {dp}")
     pipe = build_pipeline(
         series, spec, loss_fn, params,
-        PipelineConfig(batch_per_rank=args.batch, gather=args.gather,
-                       seed=args.seed, adam=adam, schedule=sched, loop=loop,
-                       device=args.device))
+        PipelineConfig(batch_per_rank=args.batch // dp,
+                       placement=Placement(args.placement), gather=args.gather,
+                       halo=not args.no_halo, seed=args.seed, adam=adam,
+                       schedule=sched, loop=loop, device=args.device))
+    del series  # only the resident rows stay, on the device
+    d = pipe.describe()
+    print(f"placement {d['placement'].value}: rank rows {d['resident_rows']} "
+          f"({d['resident_bytes']:,} bytes) on {d['device']}, "
+          f"{d['sampler']}, world {d['world']}, global batch {d['global_batch']}")
     if args.resume and loop.ckpt_dir:
         step = latest_step(loop.ckpt_dir)
         if step is not None:
@@ -122,7 +145,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--smoke", action="store_true", help="reduced LM config")
     ap.add_argument("--placement", default=Placement.REPLICATED.value,
                     choices=[p.value for p in Placement],
-                    help="dataset placement; only replicated is ported")
+                    help="ST-GNN dataset placement: every row on every rank, "
+                         "time shards with shard-aligned feeds, or time "
+                         "shards with global feeds (rows exchanged each step)")
     ap.add_argument("--gather", default="slice",
                     choices=["slice", "take", "fused", "pallas", "auto"],
                     help="window-gather lowering fused into the train step; "
@@ -151,7 +176,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--prefetch-chunk", type=int, default=8,
                     help="feed rows per prefetched block")
     ap.add_argument("--no-halo", action="store_true",
-                    help="PARTITIONED placement only (not ported)")
+                    help="PARTITIONED: keep windows strictly interior to each "
+                         "rank's shard, so no rank keeps the next shard's "
+                         "first span-1 rows")
     ap.add_argument("--elastic", action="store_true", help="not ported")
     ap.add_argument("--heartbeat", default=None, help="not ported")
     ap.add_argument("--heartbeat-timeout", type=float, default=60.0, help="not ported")
@@ -159,11 +186,14 @@ def _parser() -> argparse.ArgumentParser:
                     choices=["inprocess", "relaunch"], help="not ported")
     ap.add_argument("--target-world", type=int, default=0, help="not ported")
     ap.add_argument("--plan-out", default=None, help="not ported")
-    ap.add_argument("--init-distributed", action="store_true", help="not ported")
+    ap.add_argument("--init-distributed", action="store_true",
+                    help="join the torch.distributed process group described "
+                         "by torch.distributed.run's environment; each "
+                         "process trains its own per-rank feed")
     ap.add_argument("--history-out", default=None,
                     help="crash-durable history: every logged row appended as "
                          "one JSON line and fsynced as it lands; rows a resume "
-                         "re-runs are not written twice")
+                         "re-runs are not written twice.  Process 0 writes it")
     return ap
 
 
@@ -180,6 +210,20 @@ def main(argv: list[str] | None = None):
     if arch.family != "stgnn":
         raise NotImplementedError(
             f"training the LM arch {arch.id!r} is not ported yet: {_LM}")
+    if args.init_distributed:
+        device, backend = init_from_env(args.device)
+        args.device = str(device)
+        rank, size = process_info()
+        print(f"torch.distributed: process {rank} of {size}, backend {backend} "
+              f"on {device} (per-rank feed selection active)", flush=True)
+    try:
+        return _run(arch, args)
+    finally:
+        if args.init_distributed:
+            torch.distributed.destroy_process_group()
+
+
+def _run(arch, args):
     adam = AdamConfig(lr=args.lr)
     total = max(args.steps, 100)
 
@@ -194,7 +238,9 @@ def main(argv: list[str] | None = None):
                            staleness=args.staleness,
                            prefetch_chunk=args.prefetch_chunk)
     t0 = time.perf_counter()
-    sink = JsonlHistorySink(args.history_out) if args.history_out else []
+    # process 0 alone writes the history file
+    sink = (JsonlHistorySink(args.history_out)
+            if args.history_out and process_info()[0] == 0 else [])
     try:
         with autotuning(mode=args.autotune, cache_dir=args.tuning_dir):
             state, history = _train_stgnn(arch, args, adam, sched, loop, sink)

@@ -1,8 +1,10 @@
-"""Single-device training pipeline, in two layers:
+"""Placement-aware training pipeline, in two layers:
 
-- DataPlane: placed dataset → sampler → deterministic feeds;
-- Engine: the train step with the window gather fused in, checkpoints,
-  fit (with resume and the feed prefetcher), evaluate.
+- DataPlane: placement → resident rows → sampler → deterministic per-rank
+  feeds;
+- Engine: the train step with the window gather (and the exchange) fused in,
+  the gradient all-reduce, checkpoints, fit (with resume and the feed
+  prefetcher), evaluate.
 
 ``build_pipeline`` is the one-call constructor (returns an Engine).
 """
@@ -11,6 +13,7 @@ from repro_torch.pipeline.dataplane import DataPlane, PipelineConfig, build_data
 from repro_torch.pipeline.engine import Engine, build_engine
 from repro_torch.pipeline.pipeline import Pipeline, build_pipeline
 from repro_torch.pipeline.prefetch import FeedPrefetcher, PrefetchPlan
+from repro_torch.pipeline.samplers import ShardAlignedBatchSampler
 
 __all__ = [
     "Pipeline",
@@ -24,4 +27,5 @@ __all__ = [
     "resolve_gather",
     "FeedPrefetcher",
     "PrefetchPlan",
+    "ShardAlignedBatchSampler",
 ]

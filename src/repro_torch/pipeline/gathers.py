@@ -18,12 +18,23 @@ results for in-range starts, different lowerings:
   ``pallas`` on the card) when no verdict covers the bucket.  Every variant
   is bit-identical, so ``auto`` only ever changes speed, never values.
 
+Under the distributed placements a rank holds only some time rows of the
+series (``core/distributed.resident_rows``): the data plane hands the
+gathers starts REBASED to the rows' origin, checked on the host to lie
+inside them, so any variant above gathers from the resident slice as it
+would from the whole series.  :func:`exchange_windows` assembles windows
+whose rows lie on several ranks (``ONDEMAND``'s train batches, and the eval
+batches of both time-sharded placements).
+
 The JAX package's ``lm`` (token-stream windows) arrives with a later slice.
 """
 from __future__ import annotations
 
 import functools
 from typing import Callable
+
+import torch
+import torch.distributed as dist
 
 from repro_torch.core.batching import (gather_batch, gather_batch_fused,
                                        gather_batch_take)
@@ -37,6 +48,46 @@ def gather_batch_auto(series, starts, *, input_len: int, horizon: int):
 
     return dispatch("gather", series, starts, input_len=input_len,
                     horizon=horizon)
+
+
+def exchange_windows(series: torch.Tensor, starts: torch.Tensor, *, span: int,
+                     owned: tuple[int, int], group=None,
+                     impl: str = "ref") -> torch.Tensor:
+    """Windows whose rows are spread over the ranks, assembled exactly with
+    one sum all-reduce: ``[G, span, ...]`` for the ``G`` starts of a GLOBAL
+    batch, the same on every rank.
+
+    ``series`` is this rank's resident ``[R, ...]`` rows and ``starts`` the
+    global batch's starts rebased to their origin (they may lie outside).
+    Each rank writes the rows it OWNS (``owned``, local ``[lo, hi)``; the
+    ranks' owned ranges partition the series) into a zeroed buffer and the
+    all-reduce adds the buffers: every element is one rank's value plus
+    zeros, and ``x + 0 == x`` in floating point, so the windows equal a
+    gather from the whole series (a ``-0.0`` may come back as ``+0.0``,
+    which compares equal).  Feeds are pure in (seed, epoch, rank), so every
+    rank already knows every start: there is no request round.
+
+    The rows are read by ``window_gather`` with span 1 (``impl``: ``"ref"``,
+    ``"pallas"`` for the CUDA kernel, ``"auto"``), at clamped positions,
+    then masked.  The all-reduce moves ``G * span`` rows of payload a call.
+    """
+    from repro_torch.kernels.window_gather import window_gather
+
+    r = series.shape[0]
+    rows = starts.to(torch.long)[:, None] + torch.arange(span, device=series.device)
+    lo, hi = owned
+    mine = ((rows >= lo) & (rows < hi)).reshape(-1, 1, 1)
+    got = window_gather(series.reshape(r, -1),
+                        rows.clamp(0, r - 1).reshape(-1).to(torch.int32),
+                        span=1, impl=impl)
+    buf = torch.where(mine, got, got.new_zeros(()))
+    buf = buf.reshape((starts.shape[0], span) + tuple(series.shape[1:]))
+    dist.all_reduce(buf, group=group)
+    return buf
+
+
+#: ``window_gather`` lowering of the exchange for each train-step gather.
+EXCHANGE_IMPL = {"pallas": "pallas", "auto": "auto"}
 
 
 GATHERS: dict[str, Callable] = {

@@ -1,10 +1,11 @@
-"""``build_pipeline``: the one-call constructor of the single-device trainer.
+"""``build_pipeline``: the one-call constructor of the placement-aware trainer.
 
 Returns an :class:`~repro_torch.pipeline.engine.Engine` (``.fit``,
 ``.evaluate``, ``.dataset``, ``.dataplane``, ``.describe()``,
 ``.batch_of_starts``, ``.train_step``).  Unlike the JAX package it takes no
 mesh: the device is ``PipelineConfig.device``, ``"cuda"`` unless the caller
-asks for the CPU.
+asks for the CPU, and the ranks are the ``torch.distributed`` process group
+(none: one process).
 """
 from __future__ import annotations
 

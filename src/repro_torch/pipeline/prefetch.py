@@ -35,6 +35,12 @@ that pipeline, in two stages:
 
 ``close()`` drains the pipeline: both threads stop, queued work is dropped,
 and the iterator ends.
+
+Under ``torch.distributed`` each process drains its own
+``DataPlane.grid_stream`` (its feed columns, or the global rows the
+``ONDEMAND`` exchange needs) and the transfer function rebases and checks
+the starts on the host (``DataPlane.host_batch_of_starts``), so every
+placement keeps the staleness-0 bit-identity.
 """
 from __future__ import annotations
 

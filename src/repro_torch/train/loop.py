@@ -1,15 +1,19 @@
 """Training loop: index-batched steps, microbatch accumulation, checkpointing.
 
-The step is the paper's workflow on one device:
+The step is the paper's workflow on each rank:
 
     starts --(window gather from the RESIDENT series)--> (x, y) --> loss
-           --> grads --> AdamW
+           --> grads --(all-reduce over the process group)--> AdamW
 
 The host only ever ships int32 window starts to the device; the series was
 placed once (GPU-index-batching) and every step gathers its own batch there.
 Microbatch gradient accumulation (``microbatches > 1``) sums gradients over
 slices of the step's starts; ``grad_dtype="bfloat16"`` casts each gradient
-tree before the sum.
+tree before the sum.  With a process ``group`` (data parallel over
+``torch.distributed``), the step all-reduces its gradients and its loss as
+one flattened buffer and divides by the group's size — the collective the
+JAX package's partitioner inserts — so every rank applies the same update
+and logs the global mean loss.
 
 Deterministic ``(seed, epoch)`` feeds and step-granular checkpoints
 (:class:`repro_torch.distributed.Checkpointer`) mean a restart resumes
@@ -31,6 +35,7 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.optim import AdamConfig, apply_updates, init_opt_state
 from repro_torch.optim.adam import torch_dtype
@@ -181,6 +186,22 @@ def zero_grads_like(params, grad_dtype: str | None):
         device=p.device), params)
 
 
+def all_reduce_mean(loss: torch.Tensor, grads, group) -> tuple[torch.Tensor, Any]:
+    """``(loss, grads)`` averaged over ``group``: one sum all-reduce of a
+    flat float32 buffer holding the loss and every gradient leaf, then a
+    division by the group's size; each leaf comes back in its own dtype."""
+    leaves = tree_leaves(grads)
+    flat = torch.cat([loss.detach().reshape(1).float()]
+                     + [g.reshape(-1).float() for g in leaves])
+    dist.all_reduce(flat, group=group)
+    flat /= dist.get_world_size(group)
+    out, off = [], 1
+    for g in leaves:
+        out.append(flat[off:off + g.numel()].view(g.shape).to(g.dtype))
+        off += g.numel()
+    return flat[0], tree_unflatten(grads, out)
+
+
 def make_train_step(
     loss_fn: Callable[[Any, Any], tuple[torch.Tensor, dict]],
     adam: AdamConfig,
@@ -188,13 +209,17 @@ def make_train_step(
     *,
     microbatches: int = 1,
     grad_dtype: str | None = None,
+    group=None,
 ):
     """Build the train step.
 
     loss_fn(params, batch) -> (loss, metrics).  ``batch`` is a tensor whose
     leading per-step batch dim is divisible by ``microbatches``.
     Returns step(state, batch) -> (state, metrics); metrics stay on the
-    device (reading them synchronises).
+    device (reading them synchronises).  ``group``: a process group whose
+    ranks train one model on their own batches; the step averages the
+    gradients and the loss over it (:func:`all_reduce_mean`) before AdamW.
+    None: one process, no collective.
     """
     gdt = torch_dtype(grad_dtype) if grad_dtype is not None else None
 
@@ -222,6 +247,8 @@ def make_train_step(
             loss = loss / microbatches
             grads = tree_map(lambda g: g / microbatches, grads)
             metrics = {}
+        if group is not None:
+            loss, grads = all_reduce_mean(loss, grads, group)
         lr = schedule(opt_state["step"])
         new_params, new_opt, gnorm = apply_updates(params, grads, opt_state, adam, lr)
         out_metrics = {"loss": loss, "lr": lr, **metrics}

@@ -441,3 +441,62 @@ def test_cuda_prefetcher_side_stream_gives_the_synchronous_batches(cuda, stalene
     assert len(got) == len(sync)
     assert all(torch.equal(a, b) for a, b in zip(got, sync))
     assert not pf._dev_thread.is_alive()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [(0, 280), (140, 300), (137, 181)])
+def test_cuda_window_gather_at_rebased_starts_matches_plain_over_the_whole_series(cuda, rows):
+    """A rank's resident rows ``[lo, hi)`` of a series at PeMS-All-LA's row
+    width (2,716 nodes x 2 features, 21,728-byte rows): the kernel at the
+    starts rebased to ``lo`` gives the windows the plain gather gives over
+    the whole series at the global starts."""
+    rng = np.random.default_rng(13)
+    whole = torch.as_tensor(_series(rng, 300, (2716, 2), np.float32)).to(cuda)
+    lo, hi = rows
+    span = 24
+    resident = whole[lo:hi].contiguous()
+    starts = torch.as_tensor(rng.integers(lo, hi - span + 1, size=32).astype(np.int32))
+    before = wg_kernel.window_gather.launches
+    got = window_gather(resident, (starts - lo).to(cuda), span=span, use_pallas=True)
+    torch.cuda.synchronize()
+    assert wg_kernel.window_gather.launches == before + 1
+    assert torch.equal(got, window_gather(whole, starts.to(cuda), span=span))
+
+
+@pytest.mark.cuda
+def test_cuda_exchange_over_a_one_process_group_assembles_exact_windows(cuda):
+    """``exchange_windows`` on CUDA tensors in a one-process group (the
+    topology's backend: NCCL with the card to itself): rows this process
+    owns come back as the plain gather gives them, through one
+    ``window_gather`` launch, the others as zeros."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import choose_backend
+    from repro_torch.pipeline.gathers import exchange_windows
+
+    rng = np.random.default_rng(14)
+    series = torch.as_tensor(_series(rng, 200, (2716, 2), np.float32)).to(cuda)
+    starts = torch.as_tensor(rng.integers(0, 200 - 24 + 1, size=32).astype(np.int32)).to(cuda)
+    backend = choose_backend(cuda, 1)
+    assert backend == "nccl"
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1)
+    try:
+        want = window_gather(series, starts, span=24)
+        before = wg_kernel.window_gather.launches
+        got = exchange_windows(series, starts, span=24, owned=(0, 200), impl="pallas")
+        torch.cuda.synchronize()
+        assert wg_kernel.window_gather.launches == before + 1
+        assert torch.equal(got, want)
+        part = exchange_windows(series, starts, span=24, owned=(50, 120), impl="pallas")
+        rows = starts.long()[:, None] + torch.arange(24, device=cuda)
+        mine = ((rows >= 50) & (rows < 120))[..., None, None]
+        assert torch.equal(part, torch.where(mine, want, torch.zeros_like(want)))
+    finally:
+        dist.destroy_process_group()

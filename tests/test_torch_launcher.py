@@ -2,12 +2,18 @@
 CPU at 9 nodes: its history rows match the JAX launcher's on the same data
 and parameters (the JAX draws bridged in through ``params_from_jax``)
 within test_torch_model.py's tolerance (atol 1e-5, rtol 1e-4); ``--resume``
-from a mid-epoch checkpoint continues bit for bit; and every flag of a
+from a mid-epoch checkpoint continues bit for bit; ``--init-distributed``,
+``--placement`` and ``--no-halo`` train, in one process and under
+``torch.distributed.run`` with two processes on gloo; and every flag of a
 later slice raises, naming its ``ROADMAP.md`` item."""
 import dataclasses
 import json
+import os
 import shutil
+import socket
+import subprocess
 import sys
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -110,12 +116,96 @@ def test_resume_from_a_mid_epoch_checkpoint_is_bit_identical(tmp_path, capsys):
     assert len(_rows(tmp_path / "b.jsonl")) == 8
 
 
+_HISTORIES: dict = {}
+
+
+def _history(tmp_path, *extra):
+    """History rows of a one-epoch dcrnn-pems run with ``extra`` flags,
+    every step logged (cached by flags)."""
+    if extra not in _HISTORIES:
+        out = tmp_path / f"h{len(_HISTORIES)}.jsonl"
+        main(["--arch", "dcrnn-pems", *SMALL, "--device", "cpu", "--log-every", "1",
+              "--history-out", str(out), *extra])
+        _HISTORIES[extra] = _comparable(_rows(out))
+    return _HISTORIES[extra]
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@pytest.mark.parametrize("extra,same_as", [
+    (("--init-distributed",), ()),
+    (("--placement", "partitioned"), None),
+    (("--placement", "ondemand"), ()),
+    (("--no-halo",), ()),
+    (("--placement", "partitioned", "--no-halo"), ("--placement", "partitioned")),
+])
+def test_distributed_flags_train_in_one_process(tmp_path, monkeypatch, capsys, extra,
+                                                same_as):
+    """One process is one rank holding every row, so no collective runs:
+    ``--init-distributed`` (a world-1 group from torch.distributed.run's
+    variables), ONDEMAND's global feed and a halo that no rank follows
+    train bit for bit as the run they reduce to."""
+    if "--init-distributed" in extra:
+        for key, value in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                               LOCAL_WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+                               MASTER_PORT=str(_free_port())).items():
+            monkeypatch.setenv(key, value)
+    rows = _history(tmp_path, *extra)
+    out = capsys.readouterr().out
+    assert len(rows) == 18 and all(np.isfinite(r["loss"]) for r in rows)  # 17 steps
+    placement = extra[extra.index("--placement") + 1] if "--placement" in extra \
+        else "replicated"
+    assert f"placement {placement}: rank rows (0, 120)" in out
+    if "--init-distributed" in extra:
+        assert "process 0 of 1, backend gloo on cpu" in out
+        assert not torch.distributed.is_initialized()
+    if same_as is not None:
+        assert rows == _history(tmp_path, *same_as)
+
+
+def test_two_processes_under_torch_distributed_run(tmp_path):
+    """``torch.distributed.run`` with two CPU processes on gloo: each trains
+    its own block of ONDEMAND's global batches, holding only its shard;
+    process 0 alone writes the history and the checkpoints."""
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "2",
+           "--master-addr", "127.0.0.1", "--master-port", str(_free_port()),
+           "-m", "repro_torch.launch.train", "--init-distributed", "--device", "cpu",
+           "--arch", "dcrnn-pems", *SMALL, "--placement", "ondemand", "--log-every", "1",
+           "--ckpt-dir", str(tmp_path / "ck"), "--history-out", str(tmp_path / "h.jsonl")]
+    run = subprocess.run(cmd, env=env, cwd=tmp_path, capture_output=True, text=True,
+                         timeout=240)
+    assert run.returncode == 0, run.stderr[-4000:]
+    for rank, rows in ((0, "(0, 60)"), (1, "(60, 120)")):
+        assert f"process {rank} of 2, backend gloo on cpu" in run.stdout
+        assert f"placement ondemand: rank rows {rows}" in run.stdout
+    # 17 steps of 2 + 2 windows and the summary, on each process
+    assert run.stdout.count("done: 18 logs") == 2
+    rows = _rows(tmp_path / "h.jsonl")
+    assert [r["step"] for r in rows] == [*range(1, 18), 17]
+    assert all(np.isfinite(r["loss"]) for r in rows)
+    assert sorted(os.listdir(tmp_path / "ck")) == ["step_0000000017"]
+
+
+def test_the_global_batch_must_divide_by_the_world(monkeypatch):
+    """``--batch`` is the global batch: each of the world's ranks takes an
+    equal share, as in the JAX launcher."""
+    import repro_torch.launch.train as launcher
+
+    monkeypatch.setattr(launcher, "dp_size", lambda: 3)
+    with pytest.raises(SystemExit, match="--batch 4 not divisible by data-parallel size 3"):
+        main(["--arch", "dcrnn-pems", *SMALL, "--device", "cpu"])
+
+
 @pytest.mark.parametrize("extra,item", [
-    (["--elastic"], "item 4"), (["--heartbeat", "file:/tmp/hb"], "item 4"),
-    (["--heartbeat-timeout", "5"], "item 4"), (["--elastic-remesh", "relaunch"], "item 4"),
-    (["--target-world", "4"], "item 4"), (["--plan-out", "plan.json"], "item 4"),
-    (["--init-distributed"], "item 4"), (["--placement", "partitioned"], "item 4"),
-    (["--placement", "ondemand"], "item 4"), (["--no-halo"], "item 4"),
+    (["--elastic"], "item 4b"), (["--heartbeat", "file:/tmp/hb"], "item 4b"),
+    (["--heartbeat-timeout", "5"], "item 4b"), (["--elastic-remesh", "relaunch"], "item 4b"),
+    (["--target-world", "4"], "item 4b"), (["--plan-out", "plan.json"], "item 4b"),
     (["--smoke"], "item 6"), (["--arch", "recurrentgemma-2b"], "item 6"),
     (["--arch", "qwen1.5-4b"], "item 6"),
 ])

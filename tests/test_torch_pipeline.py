@@ -1,14 +1,16 @@
 """The slice end to end: a quickstart-sized ``build_pipeline(...).fit()`` in
 both packages on the same data, parameters and feeds, with the ``pallas``
 gather on both sides (JAX in interpret mode, the port on ``device="cpu"``,
-where the gather takes its kernel's plain version).  Also the port's device
-rule and the options that later slices bring."""
+where the gather takes its kernel's plain version).  Also the sharded
+placements in one process, the port's device rule and the options that
+later slices bring."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.core import Placement as JPlacement
 from repro.core import WindowSpec as JWindowSpec
 from repro.data import (gaussian_adjacency, make_traffic_series,
                         random_sensor_coords, transition_matrices)
@@ -139,8 +141,38 @@ def test_default_device_is_cuda_and_never_falls_back(slice_setup):
         params_from_jax(jparams)
 
 
+@pytest.mark.parametrize("placement", [Placement.PARTITIONED, Placement.ONDEMAND])
+def test_sharded_placements_in_one_process_match_jax(slice_setup, placement):
+    """One process is one rank: it keeps every row, trains the placement's
+    feed and issues no collective, as the JAX package's one-device mesh."""
+    series, sup, kw, jparams = slice_setup
+    jcfg = jm.PGTDCRNNConfig(**kw)
+    jsup = tuple(jnp.asarray(s) for s in sup)
+
+    def jloss(p, x, y):
+        return jm.loss_fn(p, jcfg, jsup, x, y), {}
+
+    jpipe = jax_build_pipeline(
+        series, JWindowSpec(horizon=HORIZON), make_host_mesh(), jloss, jparams,
+        JPipelineConfig(batch_per_rank=BATCH, placement=JPlacement(placement.value),
+                        gather="pallas", seed=3, adam=JAdam(lr=LR),
+                        loop=JLoop(epochs=1, log_every=1)))
+    jstate, jhist = jpipe.fit()
+    tpipe = _torch_pipe(series, sup, kw, params_from_jax(jparams, device="cpu"),
+                        placement=placement, loop=TrainLoopConfig(epochs=1, log_every=1))
+    tstate, thist = tpipe.fit()
+    d = tpipe.describe()
+    assert d["sampler"] == jpipe.describe()["sampler"] and d["world"] == 1
+    assert d["resident_rows"] == (0, ENTRIES)
+    assert np.array_equal(tpipe.dataplane.epoch_global(0), jpipe.dataplane.epoch_global(0))
+    for key in ("loss", "val_mae"):
+        np.testing.assert_allclose([h[key] for h in thist if key in h],
+                                   [h[key] for h in jhist if key in h], rtol=RTOL)
+    np.testing.assert_allclose(tpipe.evaluate(tstate["params"], split="test"),
+                               jpipe.evaluate(jstate["params"], split="test"), rtol=RTOL)
+
+
 @pytest.mark.parametrize("change", [
-    dict(placement=Placement.PARTITIONED),
     dict(gather="lm"),
 ])
 def test_options_of_later_slices_raise(slice_setup, change):
