@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's five main paths through their user entry points, each at
+Drives the port's six main paths through their user entry points, each at
 the full width of a registered arch, with every kernel count set to 0 just
 before a path and read just after it:
 
@@ -65,6 +65,32 @@ before a path and read just after it:
   repro_torch.launch.train --init-distributed --placement partitioned
   --gather pallas`` at 600 entries.
 
+- elastic training at ``pgt-dcrnn-pems-all-la`` width, global batch 32:
+  (a) in one process, ``build_pipeline(..., gather="pallas",
+  PipelineConfig(world=4, batch_per_rank=8), elastic=ElasticConfig(...))``
+  for 2 epochs of the ST-GNN cut (20 steps an epoch), with a fake clock and
+  heartbeat feed in which ranks 1 and 2 go silent at step 6 and announce
+  from outside the world at step 12: the restarts must be a shrink to world
+  2 (16 a rank) and a grow back to 4 (8 a rank), and losses, val MAE and
+  the final state must equal an uninterrupted world-4 run's bit for bit,
+  with a peak below the uninterrupted peak plus half the series (the
+  re-mesh frees the old series first); it prints each re-mesh's wall ms,
+  the median step ms of each world and both peaks.  (b), (c) the launcher
+  (``--elastic --elastic-remesh relaunch --heartbeat file:<dir>
+  --target-world 2 --ckpt-every 1 --history-out ... --entries 2000``) as
+  two ranks that this script spawns (not under ``torch.distributed.run``,
+  whose agent stops the survivors) on ``cuda:0`` over gloo, with the
+  rendezvous store hosted here: (b) rank 1 is SIGKILLed at its step-5
+  beat, rank 0 must exit 75 with a shrink plan dropping [1]; relaunched
+  alone with ``--resume`` while an announcer beats rank 1, it must exit 75
+  with a grow plan; the relaunched pair must finish with exit 0.  (c) rank
+  0, the leader, runs ``--ckpt-every 0`` and is SIGKILLed; rank 1 must take
+  over (the takeover checkpoint is then the only one), write the plan and
+  exit 75, and a world-1 relaunch must resume from the takeover step and
+  finish.  Each cycle's one history file must hold steps 1..n once each.
+  It prints the ms from each kill to the survivor's exit and the seconds
+  from each relaunch to its first step.
+
 Phases: device (card name and power limit; TF32 off for matmuls and cuDNN);
 build (the CUDA kernels compiled from ``src/repro_torch``, one nvcc per
 source in parallel, and each library's count of tensor-core ``HMMA``
@@ -85,7 +111,8 @@ launch floor, the same launch at [1, 1, 32]).
 
 Cuts: the distributed phase trains on a pool of 160 train windows (every
 k-th one strictly inside each rank's shard, 5 batches of 16 a rank); the
-world-1 launcher run on 600 entries.  The ST-GNN series has 8,640 entries (30 days of 5-minute bins)
+world-1 launcher run on 600 entries; the elastic processes on the
+launcher's default 2,000 entries (43 steps).  The ST-GNN series has 8,640 entries (30 days of 5-minute bins)
 instead of PeMS-All-LA's 105,120, and the train split is cut to the 20
 steps' 640 windows (5 steps' 160 on the dispatch path).  The dcrnn-pems
 series has 104 entries instead of the 105,120 of a year: 81 windows, so one
@@ -342,10 +369,12 @@ def make_data(adj):
     return raw
 
 
-def stgnn_pipeline(raw, supports, gather: str, steps: int, **loop_kw):
+def stgnn_pipeline(raw, supports, gather: str, steps: int, *, world: int = 1,
+                   elastic=None, **loop_kw):
     """The ST-GNN trainer at full width: ``steps`` train steps of BATCH
-    windows, params drawn from SEED, the window gather named ``gather``,
-    ``loop_kw`` passed to the TrainLoopConfig."""
+    windows an epoch (over ``world`` logical ranks of BATCH // world), params
+    drawn from SEED, the window gather named ``gather``, ``loop_kw`` passed
+    to the TrainLoopConfig (one epoch unless it says otherwise)."""
     from repro_torch.core import IndexDataset, WindowSpec
     from repro_torch.models import pgt_dcrnn
     from repro_torch.optim import AdamConfig
@@ -364,12 +393,13 @@ def stgnn_pipeline(raw, supports, gather: str, steps: int, **loop_kw):
     def loss_fn(p, x, y):
         return pgt_dcrnn.loss_fn(p, cfg, supports, x, y), {}
 
+    loop_kw = {"epochs": 1, **loop_kw}
     pipe = build_pipeline(
         None, spec, loss_fn, params,
-        PipelineConfig(batch_per_rank=BATCH, gather=gather, seed=SEED,
-                       device="cuda", adam=AdamConfig(lr=1e-3),
-                       loop=TrainLoopConfig(epochs=1, log_every=1, **loop_kw)),
-        dataset=ds)
+        PipelineConfig(batch_per_rank=BATCH // world, world=world if world > 1 else None,
+                       gather=gather, seed=SEED, device="cuda", adam=AdamConfig(lr=1e-3),
+                       loop=TrainLoopConfig(log_every=1, **loop_kw)),
+        dataset=ds, elastic=elastic)
     return cfg, spec, pipe
 
 
@@ -601,12 +631,16 @@ DC_CKPT_EVERY = 2
 
 
 class StepTimer:
-    """Host ms of every train step the engine runs while installed (the
-    step ends in a synchronize), by wrapping the step handed to
-    ``run_training``."""
+    """Host start and end of every train step the engine runs while
+    installed (the step ends in a synchronize), by wrapping the step handed
+    to ``run_training``; ``ms`` is each step's duration."""
 
     def __init__(self):
-        self.ms: list[float] = []
+        self.spans: list[tuple[float, float]] = []
+
+    @property
+    def ms(self) -> list[float]:
+        return [(b - a) * 1e3 for a, b in self.spans]
 
     def __enter__(self):
         from repro_torch.pipeline import engine
@@ -621,7 +655,7 @@ class StepTimer:
                 t0 = time.perf_counter()
                 out = step(state, batch)
                 torch.cuda.synchronize()
-                self.ms.append((time.perf_counter() - t0) * 1e3)
+                self.spans.append((t0, time.perf_counter()))
                 return out
 
             return self._run(**{**kw, "train_step": timed})
@@ -1575,6 +1609,357 @@ def phase_distributed(adj, work) -> int:
 
 
 
+# ------------------------------------------------------------ elastic training
+EL_WORLD = 4              # (a): logical ranks in one process, BATCH // 4 a rank
+EL_DEAD, EL_DEAD_AT, EL_BACK_AT = (1, 2), 6, 12  # (a): who goes silent, when, when back
+EL_EPOCHS = 2
+EL_ENTRIES = 2_000        # (b), (c): the launcher's default series length
+EL_KILL_AT = 5            # (b), (c): SIGKILL once the victim's beat shows this step
+EL_HB_TIMEOUT = 10.0      # (b), (c): real seconds; a step of two ranks is ~0.21 s
+EL_CHILD_TIMEOUT = 600    # any one child of (b), (c)
+
+
+class DeadThenBack:
+    """``step_feed`` fake of (a): ranks ``EL_DEAD`` stop beating at step
+    EL_DEAD_AT while the clock jumps past the heartbeat timeout (the next
+    poll plans a shrink); from step EL_BACK_AT they beat again from outside
+    the shrunk world (ids >= world), which plans a grow."""
+
+    def __init__(self, clock):
+        self.clock, self.killed = clock, False
+
+    def __call__(self, step: int, world: int) -> dict:
+        self.clock[0] += 1.0
+        beats = {r: (step, None) for r in range(world)}
+        if not self.killed and world == EL_WORLD and step >= EL_DEAD_AT:
+            for r in EL_DEAD:
+                del beats[r]
+            self.clock[0] += 100.0
+            self.killed = True
+        if world < EL_WORLD and step >= EL_BACK_AT:
+            beats.update({world + i: (step, None) for i in range(len(EL_DEAD))})
+        return beats
+
+
+def phase_elastic_inprocess(raw, supports, work) -> int:
+    """(a): world 4 in one process loses ranks 1 and 2 at step 6 and gets
+    them back at step 12, through ``build_pipeline(..., elastic=...).fit()``;
+    held bit for bit against the uninterrupted world-4 run.  Returns
+    window_gather's launches on the elastic run."""
+    from repro_torch.kernels.window_gather.kernel import window_gather
+    from repro_torch.pipeline import ElasticConfig
+
+    runs = {}
+    for label in ("uninterrupted", "elastic"):
+        clock = [0.0]
+        elastic = (ElasticConfig(heartbeat_timeout=50.0, clock=lambda: clock[0],
+                                 step_feed=DeadThenBack(clock))
+                   if label == "elastic" else None)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _, _, pipe = stgnn_pipeline(raw, supports, "pallas", TRAIN_STEPS, world=EL_WORLD,
+                                    elastic=elastic, epochs=EL_EPOCHS,
+                                    ckpt_dir=os.path.join(work, label))
+        window_gather.launches = 0
+        with StepTimer() as steps:
+            state, history = pipe.fit()
+        torch.cuda.synchronize()
+        # keep numbers, not the pipeline: a live plane's series would count
+        # in the next run's peak
+        runs[label] = dict(
+            state=_leaves(state), spans=steps.spans, launches=window_gather.launches,
+            peak=torch.cuda.max_memory_allocated(), restarts=pipe.restarts,
+            series_bytes=int(pipe.dataset.series.nbytes),
+            losses=[r["loss"] for r in history if "epoch_time_s" not in r],
+            val=[r["val_mae"] for r in history if "epoch_time_s" in r])
+        del pipe, state
+    smooth, el = runs["uninterrupted"], runs["elastic"]
+    recs = [(r["kind"], r["step"], r["world"], r["batch_per_rank"]) for r in el["restarts"]]
+    series_bytes = el["series_bytes"]
+    same_state = all(torch.equal(a, b) for a, b in zip(smooth["state"], el["state"],
+                                                       strict=True))
+    # re-mesh wall: from the end of the step whose poll raised the plan to
+    # the start of the first resumed step (span i is global step i + 1: an
+    # in-process restart resumes at the failure step itself)
+    spans = el["spans"]
+    walls = [(spans[r["step"]][0] - spans[r["step"] - 1][1]) * 1e3 for r in el["restarts"]]
+    bounds = [0] + [r["step"] for r in el["restarts"]] + [len(spans)]
+    ms = [(b - a) * 1e3 for a, b in spans]
+    phases = [statistics.median(ms[lo:hi][1 if lo == 0 else 0:])
+              for lo, hi in zip(bounds, bounds[1:])]
+    smooth_ms = statistics.median((b - a) * 1e3 for a, b in smooth["spans"][1:])
+    log(f"elastic (a): world {EL_WORLD} x batch {BATCH // EL_WORLD} in one process, "
+        f"{EL_EPOCHS} epochs of {TRAIN_STEPS} steps; ranks {list(EL_DEAD)} silent at step "
+        f"{EL_DEAD_AT}, back from step {EL_BACK_AT}: restarts (kind, step, world, batch a "
+        f"rank) {recs}")
+    log(f"elastic (a): re-mesh wall {', '.join(f'{w:.1f}' for w in walls)} ms (end of the "
+        f"step that raised the plan to the start of the first resumed step: checkpoint, "
+        f"plane rebuilt, step rebuilt, restore); median step ms by phase "
+        f"{', '.join(f'{p:.3f}' for p in phases)} (uninterrupted {smooth_ms:.3f}); peak "
+        f"device memory {el['peak']:,} bytes against {smooth['peak']:,} uninterrupted "
+        f"(series {series_bytes:,} bytes); window_gather launches {el['launches']}")
+    log(f"elastic (a): losses {'equal' if el['losses'] == smooth['losses'] else 'DIFFER'}, "
+        f"val_mae {el['val']} vs {smooth['val']}, final state "
+        f"{'identical' if same_state else 'DIFFERS'} against the uninterrupted run")
+    check([r[0] for r in recs] == ["shrink", "grow"], f"restarts {recs}")
+    check([(r[2], r[3]) for r in recs] == [(EL_WORLD - len(EL_DEAD), 2 * BATCH // EL_WORLD),
+                                           (EL_WORLD, BATCH // EL_WORLD)], f"restarts {recs}")
+    check(el["losses"] == smooth["losses"] and len(el["losses"]) == EL_EPOCHS * TRAIN_STEPS,
+          "elastic losses differ from the uninterrupted run's")
+    check(el["val"] == smooth["val"] and len(el["val"]) == EL_EPOCHS,
+          f"elastic val_mae {el['val']} differs from {smooth['val']}")
+    check(same_state, "the elastic run's final state differs from the uninterrupted run's")
+    check(el["launches"] > 0, "the elastic run did not launch window_gather")
+    check(el["peak"] < smooth["peak"] + series_bytes // 2,
+          "the re-mesh held two copies of the series on the device")
+    return el["launches"]
+
+
+def _leaves(tree):
+    from repro_torch.tree import tree_leaves
+
+    return [torch.as_tensor(x) for x in tree_leaves(tree)]
+
+
+class ElasticFleet:
+    """Ranks of the launcher spawned here (not under torch.distributed.run,
+    whose agent would stop the survivors), sharing cuda:0 over gloo, with
+    the rendezvous store hosted here so no rank's death takes it along."""
+
+    def __init__(self, work: str, extra: list):
+        self.work, self.extra = work, extra
+        self.procs: list = []
+        self.stores: list = []
+
+    def launch(self, world: int, tag: str, per_rank=None) -> list:
+        import socket
+
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        argv = [sys.executable, "-m", "repro_torch.launch.train", *self.extra]
+        if world > 1:
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                port = s.getsockname()[1]
+            self.stores.append(torch.distributed.TCPStore(
+                "127.0.0.1", port, world_size=world, is_master=True, wait_for_workers=False))
+            env.update(WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world),
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                       TORCHELASTIC_USE_AGENT_STORE="True", TORCHELASTIC_RESTART_COUNT="0")
+            argv.append("--init-distributed")
+        procs = []
+        for rank in range(world):
+            out = open(os.path.join(self.work, f"{tag}{rank}.log"), "w")
+            procs.append(subprocess.Popen(
+                argv + list((per_rank or {}).get(rank, ())), cwd=ROOT, stdout=out,
+                stderr=subprocess.STDOUT, env=dict(env, RANK=str(rank), LOCAL_RANK=str(rank))))
+        self.procs += procs
+        return procs
+
+    def beat(self, rank: int) -> dict:
+        try:
+            with open(os.path.join(self.work, "hb", f"hb_{rank}.json")) as f:
+                return json.load(f)
+        except (OSError, ValueError):
+            return {"step": -1, "wall": 0.0}
+
+    def kill_at(self, procs, rank: int) -> float:
+        """SIGKILL ``procs[rank]`` once its beat shows step >= EL_KILL_AT;
+        returns the kill's wall time."""
+        deadline = time.monotonic() + EL_CHILD_TIMEOUT
+        while self.beat(rank)["step"] < EL_KILL_AT:
+            check(time.monotonic() < deadline and all(p.poll() is None for p in procs),
+                  f"rank {rank} never beat step {EL_KILL_AT}: {self.tail(procs)}")
+            time.sleep(0.02)
+        procs[rank].kill()
+        return time.time()
+
+    def wait(self, procs, *, first_after: int | None = None, on_resume=None):
+        """Exit codes and wall exit times of ``procs``; with ``first_after``,
+        also the wall time of rank 0's first beat past that step (calling
+        ``on_resume`` then)."""
+        deadline = time.monotonic() + EL_CHILD_TIMEOUT
+        codes, ends, first = [None] * len(procs), [None] * len(procs), None
+        while None in codes:
+            for i, p in enumerate(procs):
+                if codes[i] is None and p.poll() is not None:
+                    codes[i], ends[i] = p.returncode, time.time()
+            if first_after is not None and first is None:
+                b = self.beat(0)
+                if b["step"] > first_after:
+                    first = b["wall"]
+                    if on_resume is not None:
+                        on_resume()
+            if time.monotonic() > deadline:
+                check(False, f"a child ran past {EL_CHILD_TIMEOUT} s: {self.tail(procs)}")
+            time.sleep(0.02)
+        return codes, ends, first
+
+    def tail(self, procs) -> str:
+        return " | ".join(open(os.path.join(self.work, n)).read()[-1500:]
+                          for n in sorted(os.listdir(self.work)) if n.endswith(".log"))
+
+    def lines(self, tag: str, *keys: str) -> list[str]:
+        out = []
+        for n in sorted(os.listdir(self.work)):
+            if n.startswith(tag) and n.endswith(".log"):
+                out += [f"{n[:-4]}: {line}" for line in open(os.path.join(self.work, n))
+                        if any(k in line for k in keys)]
+        return out
+
+    def plan(self) -> dict:
+        with open(os.path.join(self.work, "plan.json")) as f:
+            return json.load(f)
+
+    def close(self):
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        self.stores.clear()
+
+
+def _resumed_from(fleet, tag: str) -> int:
+    found = [int(line.split("resuming from step ")[1]) for line in
+             fleet.lines(tag, "resuming from step ")]
+    check(len(found) > 0, f"{tag}: no resume line: {fleet.tail([])}")
+    return found[0]
+
+
+def _check_history(path: str, what: str) -> int:
+    with open(path) as f:
+        rows = [json.loads(line) for line in f]
+    steps = [r["step"] for r in rows if "epoch_time_s" not in r]
+    losses = [r["loss"] for r in rows if "epoch_time_s" not in r]
+    check(steps == list(range(1, len(steps) + 1)),
+          f"{what}: history steps not 1..n once each in order: {steps}")
+    check([r["epoch"] for r in rows if "epoch_time_s" in r] == [0],
+          f"{what}: epoch summaries {[r for r in rows if 'epoch_time_s' in r]}")
+    check(all(np.isfinite(losses)), f"{what}: non-finite losses")
+    return len(steps)
+
+
+LAUNCH_LINES = ("peer failure", "leader ", "resuming from", "re-mesh requested", "done:",
+                "backend", "Error", "error")
+
+
+def phase_elastic_processes(work) -> None:
+    """(b) kill rank 1 → shrink → grow, and (c) kill rank 0 → succession,
+    each through the launcher on real processes sharing cuda:0."""
+    import threading
+
+    from repro_torch.distributed import FileHeartbeatTransport
+
+    common = ["--arch", "pgt-dcrnn-pems-all-la", "--gather", "pallas",
+              "--batch", str(BATCH), "--entries", str(EL_ENTRIES), "--seed", str(SEED),
+              "--lr", "1e-3", "--log-every", "1", "--elastic", "--elastic-remesh",
+              "relaunch", "--heartbeat-timeout", str(EL_HB_TIMEOUT)]
+    for cycle in ("b", "c"):
+        run = os.path.join(work, cycle)
+        os.makedirs(run)
+        extra = [*common, "--heartbeat", f"file:{os.path.join(run, 'hb')}",
+                 "--target-world", "2", "--plan-out", os.path.join(run, "plan.json"),
+                 "--ckpt-dir", os.path.join(run, "ck"),
+                 "--history-out", os.path.join(run, "history.jsonl")]
+        fleet = ElasticFleet(run, extra)
+        try:
+            if cycle == "b":
+                _cycle_kill_rank1(fleet, FileHeartbeatTransport, threading)
+            else:
+                _cycle_kill_rank0(fleet)
+            n = _check_history(os.path.join(run, "history.jsonl"), f"({cycle})")
+            log(f"elastic ({cycle}): the one history file holds steps 1..{n} once each, "
+                f"in order, finite losses, one epoch summary")
+        finally:
+            fleet.close()
+
+
+def _cycle_kill_rank1(fleet, transport_cls, threading) -> None:
+    t0 = time.time()
+    procs = fleet.launch(2, "a", per_rank={0: ["--ckpt-every", "1"], 1: ["--ckpt-every", "1"]})
+    killed = fleet.kill_at(procs, 1)
+    codes, ends, _ = fleet.wait(procs)
+    for line in fleet.lines("a", *LAUNCH_LINES):
+        log(f"  {line.rstrip()}")
+    plan = fleet.plan()
+    log(f"elastic (b): rank 1 SIGKILLed at its step-{EL_KILL_AT} beat "
+        f"{killed - t0:.1f} s after launch; exit codes {codes}; kill to survivor's exit "
+        f"{(ends[0] - killed) * 1e3:.0f} ms (heartbeat timeout {EL_HB_TIMEOUT} s); plan "
+        f"{plan['kind']} dropping {plan['dropped_workers']} decided by "
+        f"{plan['decided_by']} at step {plan['step']}")
+    check(codes == [75, -9], f"(b) kill: exit codes {codes}: {fleet.tail(procs)}")
+    check((plan["kind"], plan["dropped_workers"], plan["decided_by"]) == ("shrink", [1], 0),
+          f"(b) shrink plan {plan}")
+    shrink_step = plan["step"]
+
+    # world 1, the same global batch; rank 1 announces from outside the world
+    stop = threading.Event()
+
+    def announce():
+        hb = transport_cls(os.path.join(fleet.work, "hb"))
+        step = 0
+        while not stop.is_set():
+            hb.emit(1, step)
+            step += 1
+            time.sleep(0.02)
+
+    announcer = threading.Thread(target=announce, daemon=True)
+    t1 = time.time()
+    (b,) = fleet.launch(1, "b", per_rank={0: ["--ckpt-every", "1", "--resume"]})
+    try:
+        codes, _, first = fleet.wait([b], first_after=shrink_step, on_resume=announcer.start)
+    finally:
+        stop.set()
+        if announcer.is_alive():
+            announcer.join()
+    plan = fleet.plan()
+    resumed = _resumed_from(fleet, "b")
+    log(f"elastic (b): world-1 relaunch resumed from step {resumed}, first step "
+        f"{first - t1:.1f} s after launch; exit {codes}; plan {plan['kind']} re-admitting "
+        f"{plan['readmitted_workers']} at step {plan['step']}")
+    check(codes == [75] and resumed == shrink_step, f"(b) world 1: {fleet.tail([b])}")
+    check((plan["kind"], plan["readmitted_workers"]) == ("grow", [1]), f"(b) grow plan {plan}")
+
+    grow_step = plan["step"]
+    t2 = time.time()
+    procs = fleet.launch(2, "c", per_rank={0: ["--ckpt-every", "1", "--resume"],
+                                           1: ["--ckpt-every", "1", "--resume"]})
+    codes, _, first = fleet.wait(procs, first_after=grow_step)
+    for line in fleet.lines("c", "done:", "resuming"):
+        log(f"  {line.rstrip()}")
+    log(f"elastic (b): world-2 relaunch resumed from step {_resumed_from(fleet, 'c')}, first "
+        f"step {first - t2:.1f} s after launch; exit codes {codes}")
+    check(codes == [0, 0] and _resumed_from(fleet, "c") == grow_step,
+          f"(b) world 2 again: {fleet.tail(procs)}")
+
+
+def _cycle_kill_rank0(fleet) -> None:
+    t0 = time.time()
+    procs = fleet.launch(2, "ka", per_rank={0: ["--ckpt-every", "0"], 1: ["--ckpt-every", "1"]})
+    killed = fleet.kill_at(procs, 0)
+    codes, ends, _ = fleet.wait(procs)
+    for line in fleet.lines("ka", *LAUNCH_LINES):
+        log(f"  {line.rstrip()}")
+    plan = fleet.plan()
+    kept = sorted(os.listdir(os.path.join(fleet.work, "ck")))
+    log(f"elastic (c): rank 0 (the leader, --ckpt-every 0) SIGKILLed at its "
+        f"step-{EL_KILL_AT} beat {killed - t0:.1f} s after launch; exit codes {codes}; kill "
+        f"to the successor's exit {(ends[1] - killed) * 1e3:.0f} ms; plan {plan['kind']} "
+        f"dropping {plan['dropped_workers']} decided by {plan['decided_by']} at step "
+        f"{plan['step']}; checkpoints on disk {kept}")
+    check(codes == [-9, 75], f"(c) kill: exit codes {codes}: {fleet.tail(procs)}")
+    check((plan["kind"], plan["dropped_workers"], plan["decided_by"]) == ("shrink", [0], 1),
+          f"(c) plan {plan}")
+    check(kept == [f"step_{plan['step']:010d}"],
+          f"(c) the takeover checkpoint is not the only one: {kept}")
+    t1 = time.time()
+    (b,) = fleet.launch(1, "kb", per_rank={0: ["--ckpt-every", "1", "--resume"]})
+    codes, _, first = fleet.wait([b], first_after=plan["step"])
+    resumed = _resumed_from(fleet, "kb")
+    log(f"elastic (c): world-1 relaunch resumed from step {resumed} (the takeover step "
+        f"{plan['step']}), first step {first - t1:.1f} s after launch; exit {codes}")
+    check(codes == [0] and resumed == plan["step"], f"(c) world 1: {fleet.tail([b])}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -1684,6 +2069,16 @@ def main() -> int:
     log(f"distributed path launches: window_gather {dist_launches} (both ranks, "
         f"{len(DIST_RUNS)} placements)")
     kernels[0]["launches"] += dist_launches
+
+    # Elastic training: (a) in process, window_gather's count from 0 just
+    # before the elastic fit and read just after; (b), (c) on processes.
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="elastic-", dir=os.path.join(ROOT, "build")) as work:
+        el_launches = phase_elastic_inprocess(raw, supports, work)
+        log(f"elastic path launches: window_gather {el_launches}")
+        kernels[0]["launches"] += el_launches
+        phase_elastic_processes(work)
+    log(f"elastic: phase wall {time.perf_counter() - t0:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -30,6 +30,7 @@ group's size instead of a mesh's data axes.
 """
 from __future__ import annotations
 
+import datetime
 import enum
 import os
 
@@ -133,7 +134,8 @@ def choose_backend(device: torch.device, local_world: int) -> str:
     return "gloo"
 
 
-def init_from_env(device: str | torch.device) -> tuple[torch.device, str]:
+def init_from_env(device: str | torch.device, *,
+                  timeout: datetime.timedelta | None = None) -> tuple[torch.device, str]:
     """Join the process group that ``torch.distributed.run`` describes in the
     environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
     ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``).
@@ -141,6 +143,8 @@ def init_from_env(device: str | torch.device) -> tuple[torch.device, str]:
     Returns ``(device, backend)``: on ``cuda``, local rank ``i`` takes card
     ``i`` (``nccl``), or, when the host's processes outnumber its cards,
     card ``i % cards`` (``gloo``).  A missing variable raises ``KeyError``.
+    ``timeout``: how long a collective waits for its peers (None: torch's
+    default, 30 minutes).
     """
     dev = torch.device(device)
     local_rank = int(os.environ["LOCAL_RANK"])
@@ -152,5 +156,6 @@ def init_from_env(device: str | torch.device) -> tuple[torch.device, str]:
     dist.init_process_group(backend, init_method="env://",
                             rank=int(os.environ["RANK"]),
                             world_size=int(os.environ["WORLD_SIZE"]),
+                            **({"timeout": timeout} if timeout is not None else {}),
                             **({"device_id": dev} if backend == "nccl" else {}))
     return dev, backend

@@ -14,7 +14,9 @@
   ``Checkpointer`` and calls ``save`` at the same steps, but only process 0
   copies and writes; ``wait`` then ends in a barrier, so no rank goes on
   while a write is in flight, and every rank can ``restore`` what process 0
-  wrote.
+  wrote.  Elastic runs pick the writer themselves: ``snapshot`` and
+  ``save_snapshot`` copy and write from any process with no collective
+  (:class:`repro_torch.distributed.leader.LeaderCheckpointer`).
 
 Format 1, as the JAX package writes and reads it: ``arrays.npz`` keyed by
 each leaf's ``/``-joined tree path (``"params/encoder/0/ru/w"``, dict keys
@@ -106,6 +108,17 @@ class Checkpointer:
         self.writer = rank == 0
         self._grouped = size > 1
 
+    @staticmethod
+    def snapshot(state: Any) -> dict[str, np.ndarray]:
+        """Host copy of every leaf of ``state``, keyed by tree path: the
+        synchronous half of :meth:`save`, exposed so a standby writer
+        (:class:`repro_torch.distributed.leader.LeaderCheckpointer`) can hold
+        the would-be checkpoint in host memory without writing it.  The copy
+        is taken while the device tensors are still valid; after a failed
+        collective they may not be, but the held copy can always be
+        written."""
+        return _flatten(state)
+
     def save(self, state: Any, *, step: int, meta: dict | None = None) -> None:
         """``meta``: JSON-serialisable run coordinates stored in the manifest
         (e.g. ``{epoch, done_in_epoch}``), read back with
@@ -116,8 +129,16 @@ class Checkpointer:
         self.wait()
         if not self.writer:
             return
-        flat = _flatten(state)
-        if self.async_write:
+        self.save_snapshot(_flatten(state), step=step, meta=meta)
+
+    def save_snapshot(self, flat: dict[str, np.ndarray], *, step: int,
+                      meta: dict | None = None, sync: bool = False) -> None:
+        """Write a :meth:`snapshot` from THIS process, whatever its rank (the
+        caller decides who writes), with no collective.  ``sync=True``
+        writes before returning even on an async checkpointer: a successor
+        makes its takeover checkpoint durable before it exits."""
+        self.flush()  # one write in flight at a time
+        if self.async_write and not sync:
             self._thread = threading.Thread(
                 target=self._write, args=(flat, step, meta), daemon=True)
             self._thread.start()

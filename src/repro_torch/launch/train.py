@@ -1,5 +1,5 @@
-"""End-to-end training launcher of the port, on one device or under
-``torch.distributed.run``.
+"""End-to-end training launcher of the port, on one device or as one rank of
+a ``torch.distributed`` group.
 
 Runs the paper's workflow — synthetic data gen → index-batching
 preprocessing → GPU-index-batching placement → distributed-index-batching
@@ -14,17 +14,47 @@ duplicates of a resumed epoch tail dropped); and the feed prefetcher
 
 It runs the ST-GNN archs (``dcrnn-pems``, ``pgt-dcrnn-pems-all-la``) on
 ``--device`` (``cuda`` unless the caller asks for ``cpu``; no fallback).
-With ``--init-distributed`` it joins the process group that
-``torch.distributed.run`` describes in the environment: each process is one
-rank, takes card ``LOCAL_RANK`` (or shares a card when the host has fewer
-cards than processes), and trains its own per-rank feed; ``--batch`` is the
-GLOBAL batch and must divide by the world size.  The collective backend
-follows the topology — ``nccl`` when every rank has a card of its own,
-``gloo`` when ranks share a card or run on the CPU — and is printed at
-start.  Process 0 alone writes checkpoints and the history.  What later
-slices bring raises ``NotImplementedError`` naming its ``ROADMAP.md`` item:
-the LM archs and ``--smoke``; the elastic flags.  Two differences from the
-JAX launcher: ``--tuning-dir`` defaults to the port's own cache directory
+With ``--init-distributed`` it joins the process group that the environment
+describes (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``,
+``MASTER_ADDR``, ``MASTER_PORT``, as ``torch.distributed.run`` sets them):
+each process is one rank, takes card ``LOCAL_RANK`` (or shares a card when
+the host has fewer cards than processes), and trains its own per-rank feed;
+``--batch`` is the GLOBAL batch and must divide by the world size.  The
+collective backend follows the topology — ``nccl`` when every rank has a
+card of its own, ``gloo`` when ranks share a card or run on the CPU — and is
+printed at start.  The leader (process 0 unless a heartbeat transport hands
+the role on) writes checkpoints and the history.
+
+``--elastic`` attaches the heartbeat → re-mesh policy (needs
+``--ckpt-dir``): worker loss shrinks the world and resumes from the latest
+checkpoint instead of ending the run, and a returned worker is grown back
+in.  Without ``--heartbeat`` the fleet is simulated all-healthy.
+``--heartbeat file:<dir>|tcp://a:p[,b:p,...]`` is a real transport: every
+process emits its ranks' beats each step, every process that can collect
+polls them, and only the LEADER (the lowest live rank,
+``repro_torch.distributed.leader``) acts on a verdict.  One process re-meshes
+in place.  A group of processes cannot (a dead peer's rows are gone and its
+collectives fail), so under ``--init-distributed`` it takes
+``--elastic-remesh relaunch``: on a plan the leader checkpoints, writes the
+plan to ``--plan-out`` atomically and exits 75 (EX_TEMPFAIL), and the
+external launcher relaunches the fleet into the planned world with the SAME
+``--batch`` (``--target-world`` caps a grow).  A peer's death surfaces as a
+failed collective: the survivors attribute it from the transport's
+snapshot (whose beats went silent), the lowest surviving rank takes over
+the leader's duties (it writes its warm-standby checkpoint of the failure
+step, the shrink plan and the history rows it buffered) and every survivor
+exits 75.  Such a launcher spawns each rank itself (as ``chip_smoke.py`` and
+``tests/test_torch_multihost.py`` do) rather than under
+``torch.distributed.run``, whose agent stops the surviving workers when one
+dies; it also hosts the rendezvous store (``TORCHELASTIC_USE_AGENT_STORE=True``
+makes every rank a client), so that rank 0's death does not take the store
+with it.  The elastic path's process group times out a collective after
+``max(5 × --heartbeat-timeout, 60)`` seconds (torch's default is 30
+minutes).
+
+The LM archs and ``--smoke`` raise ``NotImplementedError`` naming their
+``ROADMAP.md`` item.  Two differences from the JAX launcher:
+``--tuning-dir`` defaults to the port's own cache directory
 (``build/tuning``, never ``results/``), and ``--log-every`` sets the
 history's step-row cadence (the JAX launcher fixes it at 10, the default
 here).
@@ -38,11 +68,18 @@ Examples:
       --history-out /tmp/h.jsonl
   python -m repro_torch.launch.train --arch dcrnn-pems --nodes 9 \\
       --entries 120 --batch 4 --device cpu --ckpt-dir /tmp/ck --resume
+  python -m repro_torch.launch.train --arch dcrnn-pems --nodes 9 \\
+      --entries 120 --batch 4 --device cpu --elastic --ckpt-dir /tmp/ck \\
+      --heartbeat file:/tmp/hb
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
+import json
+import os
+import tempfile
 import time
 
 import numpy as np
@@ -54,27 +91,32 @@ from repro_torch.core.distributed import dp_size, init_from_env, process_info
 from repro_torch.data import (gaussian_adjacency, make_traffic_series,
                               random_sensor_coords, transition_matrices)
 from repro_torch.device import resolve_device
-from repro_torch.distributed import latest_step
+from repro_torch.distributed import (LeaderHistorySink, LeaderTracker,
+                                     checkpoint_meta, latest_step, make_transport)
+from repro_torch.distributed.transport import tcp_addresses
 from repro_torch.kernels.autotune import DEFAULT_CACHE_DIR, autotuning
 from repro_torch.models import dcrnn, pgt_dcrnn
 from repro_torch.optim import AdamConfig, warmup_cosine
-from repro_torch.pipeline import PipelineConfig, build_pipeline
-from repro_torch.train.loop import JsonlHistorySink, TrainLoopConfig
+from repro_torch.pipeline import ElasticConfig, PipelineConfig, build_pipeline
+from repro_torch.train.loop import RestartSignal, TrainLoopConfig
 
-_ELASTIC = ("ROADMAP.md queue 1, item 4b (elastic restarts, heartbeats and "
-            "leader succession)")
 _LM = "ROADMAP.md queue 1, item 6 (the rest of the LM family and LM training)"
 
 #: flags of later slices: (argparse dest, its default, where it is queued)
 _LATER = (
-    ("elastic", False, _ELASTIC),
-    ("heartbeat", None, _ELASTIC),
-    ("heartbeat_timeout", 60.0, _ELASTIC),
-    ("elastic_remesh", "inprocess", _ELASTIC),
-    ("target_world", 0, _ELASTIC),
-    ("plan_out", None, _ELASTIC),
     ("smoke", False, _LM),
 )
+
+#: Exit code for "re-mesh requested" in relaunch mode (EX_TEMPFAIL: the run
+#: is not broken, it wants to be relaunched into the planned world).
+EX_REMESH = 75
+
+
+def _group_timeout(args) -> datetime.timedelta:
+    """How long the elastic path's collectives wait for a peer: long enough
+    for any lock-step pause (a first step, an evaluation), short enough that
+    a missed failure does not block for torch's default 30 minutes."""
+    return datetime.timedelta(seconds=max(5 * args.heartbeat_timeout, 60.0))
 
 
 def _train_stgnn(arch, args, adam, sched, loop: TrainLoopConfig, sink):
@@ -113,7 +155,8 @@ def _train_stgnn(arch, args, adam, sched, loop: TrainLoopConfig, sink):
         PipelineConfig(batch_per_rank=args.batch // dp,
                        placement=Placement(args.placement), gather=args.gather,
                        halo=not args.no_halo, seed=args.seed, adam=adam,
-                       schedule=sched, loop=loop, device=args.device))
+                       schedule=sched, loop=loop, device=args.device),
+        elastic=_elastic_config(args))
     del series  # only the resident rows stay, on the device
     d = pipe.describe()
     print(f"placement {d['placement'].value}: rank rows {d['resident_rows']} "
@@ -122,8 +165,134 @@ def _train_stgnn(arch, args, adam, sched, loop: TrainLoopConfig, sink):
     if args.resume and loop.ckpt_dir:
         step = latest_step(loop.ckpt_dir)
         if step is not None:
-            print(f"resuming from step {step}")
-    return pipe.fit(resume=args.resume, history_sink=sink)
+            print(f"resuming from step {step}", flush=True)
+    transport = _wire_heartbeat(pipe, args, sink)
+    try:
+        return pipe.fit(resume=args.resume, history_sink=sink)
+    except RuntimeError as err:  # what a collective raises when a peer is gone
+        if transport is not None and pipe.dataplane.processes > 1:
+            _succeed(pipe, transport, args, sink, err)  # exits 75 if a peer went silent
+        raise
+    finally:
+        if transport is not None:
+            transport.close()
+
+
+def _elastic_config(args) -> ElasticConfig | None:
+    if not args.elastic:
+        return None
+    return ElasticConfig(heartbeat_timeout=args.heartbeat_timeout,
+                         remesh=args.elastic_remesh,
+                         target_world=args.target_world or None)
+
+
+def _wire_heartbeat(pipe, args, sink):
+    """Attach a real transport to an elastic pipeline: every process emits
+    beats for the feed ranks it owns; every process that CAN collect polls
+    them, but only the current LEADER — the lowest live rank, tracked by a
+    ``LeaderTracker`` over the same beat stream — acts on a verdict.  One
+    decider at a time, yet the role survives the death of process 0: the
+    successor's monitor state is already primed when it takes over.
+    Returns the transport (the caller closes it) or None."""
+    if not args.heartbeat or pipe.elastic is None:
+        return None
+    process = pipe.dataplane.process
+    addrs = tcp_addresses(args.heartbeat)
+    if addrs is not None:
+        # Address k of the failover list is served by process k; processes
+        # beyond the list emit only, so the list's length bounds the
+        # succession depth.
+        serve = process < len(addrs)
+        transport = make_transport(args.heartbeat, serve=serve, serve_index=process)
+    else:
+        serve = True  # the file transport is symmetric: every process polls
+        transport = make_transport(args.heartbeat)
+
+    def emitter(step: int) -> None:
+        # Re-read the world every step: an in-process re-mesh changes it,
+        # and beating for a rank outside the world reads as a returned one.
+        ranks = pipe.dataplane.process_ranks
+        for r in (ranks if ranks is not None else range(pipe.world)):
+            transport.emit(r, step)
+
+    tracker = None
+    if serve:
+        # Only collecting processes can lead (a process that polls nothing
+        # would decide on the simulated all-healthy feed).  The rest keep
+        # the process-0 gate — false for them — and never buffer history
+        # rows they could not flush.
+        tracker = LeaderTracker(pipe.world, timeout=args.heartbeat_timeout)
+        ranks = pipe.dataplane.process_ranks
+        tracker.bind(ranks if ranks is not None else range(pipe.world))
+        if isinstance(sink, LeaderHistorySink):
+            sink.bind(tracker.is_leader, buffer_standby=True)
+    pipe.elastic = dataclasses.replace(
+        pipe.elastic, emitter=emitter, leader=tracker,
+        step_feed=(transport.step_feed if serve and hasattr(transport, "step_feed")
+                   else pipe.elastic.step_feed))
+    return transport
+
+
+def _succeed(pipe, transport, args, sink, err: RuntimeError):
+    """A collective failed under a process group: a peer is gone.  Attribute
+    the death through the transport (whose beats went silent, waiting up to
+    four heartbeat timeouts for a stale peer to age past the timeout), run
+    leader succession — if the dead peer was the leader, the lowest
+    surviving rank takes over: it writes its warm-standby checkpoint of the
+    failure step, decides the shrink plan and lands its buffered history
+    rows — and exit 75 for the external launcher to relaunch the survivors.  Returns
+    when no peer went silent: the failure is not a peer's death."""
+    ranks = pipe.dataplane.process_ranks or []
+    others = [r for r in range(pipe.world) if r not in ranks]
+    t0 = time.monotonic()
+    while True:
+        snap = transport.snapshot()
+        dead = [r for r in others
+                if r not in snap or snap[r]["age"] > args.heartbeat_timeout]
+        if dead:
+            break
+        if time.monotonic() - t0 > 4 * args.heartbeat_timeout:
+            return
+        time.sleep(min(0.1, args.heartbeat_timeout / 20))
+    print(f"peer failure ({type(err).__name__}: {str(err)[:200]}); ranks "
+          f"{dead} silent, attributed in {time.monotonic() - t0:.3f} s", flush=True)
+    succession = pipe.succeed_as_leader(dead)
+    flushed = sink.flush_as_leader() if isinstance(sink, LeaderHistorySink) else 0
+    if succession is not None:
+        step = succession["ckpt_step"]
+        if step is None:
+            step = latest_step(args.ckpt_dir)
+        meta = checkpoint_meta(args.ckpt_dir, step=step) if step is not None else {}
+        print(f"leader {succession['leader']}: checkpoint of step {step} "
+              f"{'written on takeover' if succession['ckpt_step'] is not None else 'on disk'}"
+              f", {flushed} buffered history rows landed", flush=True)
+        _write_plan(args, succession["plan"], reason=str(err)[:300],
+                    epoch=meta.get("epoch"), step=step)
+    raise SystemExit(EX_REMESH)
+
+
+def _write_plan(args, plan, *, reason: str, epoch, step) -> None:
+    """Relaunch mode: persist the re-mesh plan for the external launcher,
+    written atomically so it can never read a torn plan.  The caller is the
+    leader: the decider and checkpoint writer, whose (epoch, step) match the
+    durable checkpoint."""
+    out = {
+        "kind": plan.kind if plan is not None else "unknown",
+        "reason": str(plan.reason) if plan is not None else reason,
+        "dropped_workers": list(plan.dropped_workers) if plan else [],
+        "readmitted_workers": list(plan.readmitted_workers) if plan else [],
+        "mesh_shape": list(plan.mesh_shape) if plan else [],
+        "decided_by": plan.decided_by if plan else None,
+        "epoch": epoch, "step": step,
+    }
+    payload = json.dumps(out, indent=1)
+    if args.plan_out:
+        fd, tmp = tempfile.mkstemp(prefix=".plan-",
+                                   dir=os.path.dirname(args.plan_out) or ".")
+        with os.fdopen(fd, "w") as f:
+            f.write(payload)
+        os.replace(tmp, args.plan_out)
+    print(f"re-mesh requested (exit {EX_REMESH}): {payload}", flush=True)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -179,21 +348,39 @@ def _parser() -> argparse.ArgumentParser:
                     help="PARTITIONED: keep windows strictly interior to each "
                          "rank's shard, so no rank keeps the next shard's "
                          "first span-1 rows")
-    ap.add_argument("--elastic", action="store_true", help="not ported")
-    ap.add_argument("--heartbeat", default=None, help="not ported")
-    ap.add_argument("--heartbeat-timeout", type=float, default=60.0, help="not ported")
+    ap.add_argument("--elastic", action="store_true",
+                    help="attach the heartbeat -> plan_remesh -> re-mesh-and-"
+                         "resume policy (needs --ckpt-dir).  Without "
+                         "--heartbeat the fleet is simulated all-healthy")
+    ap.add_argument("--heartbeat", default=None,
+                    help="real heartbeat transport: file:<shared-dir> (the "
+                         "processes of one host; every process polls) or "
+                         "tcp://a:p[,b:p,...], an ordered failover list in "
+                         "leader-succession order (process k binds address "
+                         "k; collectors mirror beats to each other)")
+    ap.add_argument("--heartbeat-timeout", type=float, default=60.0,
+                    help="seconds without a beat before a worker is dead")
     ap.add_argument("--elastic-remesh", default="inprocess",
-                    choices=["inprocess", "relaunch"], help="not ported")
-    ap.add_argument("--target-world", type=int, default=0, help="not ported")
-    ap.add_argument("--plan-out", default=None, help="not ported")
+                    choices=["inprocess", "relaunch"],
+                    help="who executes a re-mesh plan: this process (one "
+                         "process only) or an external launcher: the leader then "
+                         f"checkpoints, writes --plan-out and exits {EX_REMESH}")
+    ap.add_argument("--target-world", type=int, default=0,
+                    help="grow ceiling: re-admit returned workers up to this "
+                         "world.  0 = the world THIS process started with — "
+                         "after a relaunch that is the shrunk world, so a "
+                         "relaunching controller passes the original size")
+    ap.add_argument("--plan-out", default=None,
+                    help="relaunch mode: path of the re-mesh plan JSON")
     ap.add_argument("--init-distributed", action="store_true",
                     help="join the torch.distributed process group described "
-                         "by torch.distributed.run's environment; each "
-                         "process trains its own per-rank feed")
+                         "by the environment (RANK, WORLD_SIZE, LOCAL_RANK, "
+                         "MASTER_ADDR, MASTER_PORT); each process trains its "
+                         "own per-rank feed")
     ap.add_argument("--history-out", default=None,
                     help="crash-durable history: every logged row appended as "
                          "one JSON line and fsynced as it lands; rows a resume "
-                         "re-runs are not written twice.  Process 0 writes it")
+                         "re-runs are not written twice.  The leader writes it")
     return ap
 
 
@@ -205,22 +392,39 @@ def main(argv: list[str] | None = None):
         if getattr(args, dest) != default:
             flag = "--" + dest.replace("_", "-")
             raise NotImplementedError(f"{flag} is not ported yet: {item}")
+    if args.heartbeat and not args.elastic:
+        # Ignoring the transport would leave the operator believing health
+        # monitoring is on when nothing emits or collects beats.
+        raise SystemExit("--heartbeat requires --elastic: the transport only "
+                         "feeds the elastic heartbeat monitor")
+    if args.init_distributed and args.elastic and args.elastic_remesh != "relaunch":
+        # The in-process re-mesh places the whole series again, which only
+        # one process holds.
+        raise SystemExit("--elastic with --init-distributed needs "
+                         "--elastic-remesh relaunch: a fleet re-meshes by "
+                         "relaunching into the planned world")
+    if args.elastic and args.elastic_remesh == "relaunch" and not args.target_world:
+        print("warning: --elastic-remesh relaunch without --target-world — "
+              "growth is capped at this process's starting world; a "
+              "relaunching controller should pass the original fleet size", flush=True)
     resolve_device(args.device)
     arch = get_arch(args.arch)
     if arch.family != "stgnn":
         raise NotImplementedError(
             f"training the LM arch {arch.id!r} is not ported yet: {_LM}")
     if args.init_distributed:
-        device, backend = init_from_env(args.device)
+        device, backend = init_from_env(
+            args.device, timeout=_group_timeout(args) if args.elastic else None)
         args.device = str(device)
         rank, size = process_info()
         print(f"torch.distributed: process {rank} of {size}, backend {backend} "
               f"on {device} (per-rank feed selection active)", flush=True)
-    try:
-        return _run(arch, args)
-    finally:
-        if args.init_distributed:
-            torch.distributed.destroy_process_group()
+    # No collective on a failure path (a peer may be gone): only a run that
+    # returns destroys its group; an exception leaves it to the exit.
+    out = _run(arch, args)
+    if args.init_distributed:
+        torch.distributed.destroy_process_group()
+    return out
 
 
 def _run(arch, args):
@@ -238,14 +442,24 @@ def _run(arch, args):
                            staleness=args.staleness,
                            prefetch_chunk=args.prefetch_chunk)
     t0 = time.perf_counter()
-    # process 0 alone writes the history file
-    sink = (JsonlHistorySink(args.history_out)
-            if args.history_out and process_info()[0] == 0 else [])
+    # Every process carries the leader-gated sink: the leader's rows land
+    # durably; a standby buffers only once _wire_heartbeat binds it to a
+    # succession tracker (without one it could never flush).
+    sink = (LeaderHistorySink(args.history_out, lambda: process_info()[0] == 0,
+                              buffer_standby=False)
+            if args.history_out else [])
     try:
         with autotuning(mode=args.autotune, cache_dir=args.tuning_dir):
             state, history = _train_stgnn(arch, args, adam, sched, loop, sink)
+    except RestartSignal as sig:
+        # relaunch mode: the state is checkpointed with its (epoch,
+        # done_in_epoch) coordinates; the leader hands the plan to the external launcher
+        if getattr(sig, "leader", process_info()[0] == 0):
+            _write_plan(args, sig.plan, reason=str(sig), epoch=sig.epoch,
+                        step=sig.step)
+        raise SystemExit(EX_REMESH)
     finally:
-        if isinstance(sink, JsonlHistorySink):
+        if isinstance(sink, LeaderHistorySink):
             sink.close()
     wall = time.perf_counter() - t0
     final = [h for h in history if "loss" in h]

@@ -329,6 +329,34 @@ class DataPlane:
         starts = self.host_batch_of_starts(window_ids, exchange=exchange)
         return torch.as_tensor(starts).to(self.device)
 
+    # --------------------------------------------------------------- elastic
+    def remesh(self, *, world: int, batch_per_rank: int) -> "DataPlane":
+        """This plane rebuilt for a new logical world (an elastic shrink or
+        grow): the same windows, splits and scaler, a sampler for ``world``
+        ranks of ``batch_per_rank``, and the series placed again on the
+        plane's device, so (seed, epoch) determinism holds.
+
+        One process only: the whole series is resident there, and its host
+        copy is what the new plane places.  A fleet of processes relaunches
+        into the new world instead (``ElasticConfig(remesh="relaunch")``).
+        This plane gives up its device series BEFORE the new one is
+        allocated, so the re-mesh never holds two copies on the device; the
+        caller must hold no other reference to it (the engine drops its
+        compiled step first).  This plane is unusable afterwards.
+        """
+        if self.processes > 1:
+            raise ValueError(
+                f"DataPlane.remesh rebuilds a one-process plane; under a "
+                f"process group of {self.processes} the fleet relaunches into "
+                f"the new world instead")
+        config = dataclasses.replace(self.config, world=world,
+                                     batch_per_rank=batch_per_rank)
+        host_ds = dataclasses.replace(
+            self.dataset, series=self.dataset.series.detach().cpu().numpy())
+        self.dataset = dataclasses.replace(self.dataset, series=None)
+        self._eval_tail_cache.clear()
+        return build_dataplane(None, self.spec, config, dataset=host_ds)
+
 
 def _process_ranks(world: int, process: int, processes: int) -> list[int] | None:
     if processes <= 1:

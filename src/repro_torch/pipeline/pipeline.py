@@ -16,7 +16,7 @@ import numpy as np
 from repro_torch.core.index_dataset import IndexDataset
 from repro_torch.core.windows import WindowSpec
 from repro_torch.pipeline.dataplane import DataPlane, PipelineConfig, build_dataplane
-from repro_torch.pipeline.engine import Engine, build_engine
+from repro_torch.pipeline.engine import ElasticConfig, Engine, build_engine
 
 #: The legacy name: an assembled trainer IS the engine.
 Pipeline = Engine
@@ -30,7 +30,7 @@ def build_pipeline(
     config: PipelineConfig = PipelineConfig(),
     *,
     dataset: IndexDataset | None = None,
-    elastic: Any = None,
+    elastic: ElasticConfig | None = None,
 ) -> Engine:
     """See :func:`build_engine`."""
     return build_engine(raw, spec, loss_fn, init_params, config,
@@ -38,4 +38,4 @@ def build_pipeline(
 
 
 __all__ = ["Pipeline", "PipelineConfig", "build_pipeline", "DataPlane",
-           "build_dataplane", "Engine", "build_engine"]
+           "build_dataplane", "Engine", "ElasticConfig", "build_engine"]

@@ -286,3 +286,8 @@ class FeedPrefetcher:
                         except queue.Empty:
                             pass
                 t.join(timeout=_TICK)
+        if self._copy is not None and self._copy.cuda:
+            # Copies still in flight on the side stream end here, so the
+            # caller may free what the stream touches once close() returns
+            # (an elastic re-mesh frees the old plane right after the drain).
+            self._copy.stream.synchronize()

@@ -500,3 +500,84 @@ def test_cuda_exchange_over_a_one_process_group_assembles_exact_windows(cuda):
         assert torch.equal(part, torch.where(mine, want, torch.zeros_like(want)))
     finally:
         dist.destroy_process_group()
+
+
+class _DeadThenBack:
+    """``step_feed`` fake: ranks 1 and 2 of 4 go silent at step 3 while the
+    clock jumps past the timeout, and beat from outside the shrunk world
+    from step 6."""
+
+    def __init__(self, clock):
+        self.clock, self.killed = clock, False
+
+    def __call__(self, step, world):
+        self.clock[0] += 1.0
+        beats = {r: (step, None) for r in range(world)}
+        if not self.killed and world == 4 and step >= 3:
+            del beats[1], beats[2]
+            self.clock[0] += 100.0
+            self.killed = True
+        if world < 4 and step >= 6:
+            beats.update({world: (step, None), world + 1: (step, None)})
+        return beats
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefetch", [{}, {"prefetch_depth": 2, "staleness": 1}])
+def test_cuda_elastic_shrink_grow_is_bit_equal_to_the_uninterrupted_run(cuda, tmp_path,
+                                                                      prefetch):
+    """In one process on the card: world 4 shrinks to 2 and grows back to 4
+    (per-rank batch 2 → 4 → 2, the global batch 8 throughout), every step
+    gathering through the CUDA ``window_gather``, synchronously or through
+    the prefetcher's side stream (drained before each re-mesh frees the old
+    series); losses, val_mae and the final state equal the uninterrupted
+    synchronous world-4 run's bit for bit."""
+    from repro_torch.core import WindowSpec
+    from repro_torch.data import (gaussian_adjacency, make_traffic_series,
+                                  random_sensor_coords, transition_matrices)
+    from repro_torch.models import pgt_dcrnn
+    from repro_torch.optim import AdamConfig
+    from repro_torch.pipeline import ElasticConfig, PipelineConfig, build_pipeline
+    from repro_torch.train import TrainLoopConfig
+    from repro_torch.tree import tree_leaves
+
+    nodes = 16
+    cfg = pgt_dcrnn.PGTDCRNNConfig(num_nodes=nodes, in_features=2, out_features=1,
+                                   hidden=8, max_diffusion_step=2, input_len=4, horizon=4)
+    adj = gaussian_adjacency(random_sensor_coords(nodes, seed=3))
+    supports = tuple(torch.as_tensor(np.ascontiguousarray(s)).to(cuda)
+                     for s in transition_matrices(adj))
+    series = make_traffic_series(160, nodes, 2, seed=3, adjacency=adj)
+
+    def loss_fn(p, x, y):
+        return pgt_dcrnn.loss_fn(p, cfg, supports, x, y), {}
+
+    runs = []
+    for label, loop_kw in (("smooth", {}), ("elastic", prefetch)):
+        clock = [0.0]
+        elastic = (ElasticConfig(heartbeat_timeout=50.0, clock=lambda: clock[0],
+                                 step_feed=_DeadThenBack(clock))
+                   if label == "elastic" else None)
+        pipe = build_pipeline(
+            series, WindowSpec(horizon=4, input_len=4), loss_fn,
+            pgt_dcrnn.init(torch.Generator().manual_seed(3), cfg, device="cuda"),
+            PipelineConfig(batch_per_rank=2, world=4, gather="pallas", seed=3,
+                           device="cuda", adam=AdamConfig(lr=1e-3),
+                           loop=TrainLoopConfig(epochs=2, log_every=1,
+                                                ckpt_dir=str(tmp_path / label),
+                                                **loop_kw)),
+            elastic=elastic)
+        before = wg_kernel.window_gather.launches
+        state, history = pipe.fit()
+        torch.cuda.synchronize()
+        runs.append((pipe, state, history, wg_kernel.window_gather.launches - before))
+    (_, smooth, smooth_hist, _), (pipe, state, hist, launches) = runs
+    assert [(r["kind"], r["world"], r["batch_per_rank"]) for r in pipe.restarts] == \
+        [("shrink", 2, 4), ("grow", 4, 2)]
+    assert launches >= len([h for h in hist if "epoch_time_s" not in h])
+    assert [h["loss"] for h in hist if "epoch_time_s" not in h] == \
+        [h["loss"] for h in smooth_hist if "epoch_time_s" not in h]
+    assert [h["val_mae"] for h in hist if "epoch_time_s" in h] == \
+        [h["val_mae"] for h in smooth_hist if "epoch_time_s" in h]
+    for a, b in zip(tree_leaves(smooth), tree_leaves(state), strict=True):
+        assert torch.equal(torch.as_tensor(a), torch.as_tensor(b))

@@ -4,8 +4,11 @@ and parameters (the JAX draws bridged in through ``params_from_jax``)
 within test_torch_model.py's tolerance (atol 1e-5, rtol 1e-4); ``--resume``
 from a mid-epoch checkpoint continues bit for bit; ``--init-distributed``,
 ``--placement`` and ``--no-halo`` train, in one process and under
-``torch.distributed.run`` with two processes on gloo; and every flag of a
-later slice raises, naming its ``ROADMAP.md`` item."""
+``torch.distributed.run`` with two processes on gloo; the elastic flags
+train (an all-healthy fleet, a file transport), refuse their bad
+combinations and write an atomic plan on exit 75 (the kill cycles are
+tests/test_torch_multihost.py); and every flag of a later slice raises,
+naming its ``ROADMAP.md`` item."""
 import dataclasses
 import json
 import os
@@ -13,6 +16,8 @@ import shutil
 import socket
 import subprocess
 import sys
+import threading
+import time
 from pathlib import Path
 
 import jax
@@ -203,15 +208,124 @@ def test_the_global_batch_must_divide_by_the_world(monkeypatch):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--elastic"], "item 4b"), (["--heartbeat", "file:/tmp/hb"], "item 4b"),
-    (["--heartbeat-timeout", "5"], "item 4b"), (["--elastic-remesh", "relaunch"], "item 4b"),
-    (["--target-world", "4"], "item 4b"), (["--plan-out", "plan.json"], "item 4b"),
     (["--smoke"], "item 6"), (["--arch", "recurrentgemma-2b"], "item 6"),
     (["--arch", "qwen1.5-4b"], "item 6"),
 ])
 def test_flags_of_later_slices_raise_with_their_roadmap_item(extra, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {item} "):
         main(["--arch", "dcrnn-pems", *SMALL, "--device", "cpu", *extra])
+
+
+def _elastic_run(tmp_path, *extra):
+    return main(["--arch", "dcrnn-pems", *SMALL, "--device", "cpu", "--log-every", "1",
+                 "--ckpt-dir", str(tmp_path / "ck"), "--elastic", *extra])
+
+
+def _heartbeat_needs_elastic(tmp_path, capsys):
+    with pytest.raises(SystemExit, match="--heartbeat requires --elastic"):
+        main(["--arch", "dcrnn-pems", *SMALL, "--device", "cpu",
+              "--heartbeat", f"file:{tmp_path / 'hb'}"])
+
+
+def _a_group_needs_relaunch(tmp_path, capsys):
+    with pytest.raises(SystemExit, match="needs --elastic-remesh relaunch"):
+        main(["--arch", "dcrnn-pems", *SMALL, "--device", "cpu", "--init-distributed",
+              "--elastic", "--ckpt-dir", str(tmp_path / "ck")])
+
+
+def _elastic_alone_trains_all_healthy(tmp_path, capsys):
+    """The simulated all-healthy fleet: no re-mesh, the plain run's rows."""
+    _, history = _elastic_run(tmp_path)
+    assert _comparable(history) == _history(tmp_path)
+
+
+def _heartbeat_file_transport_trains(tmp_path, capsys):
+    """One process beating through real files: its rank's file carries the
+    last step, and the run is the plain run."""
+    _, history = _elastic_run(tmp_path, "--heartbeat", f"file:{tmp_path / 'hb'}",
+                              "--heartbeat-timeout", "30")
+    assert _comparable(history) == _history(tmp_path)
+    assert json.loads((tmp_path / "hb" / "hb_0.json").read_text())["step"] == 17
+
+
+def _relaunch_without_target_world_warns(tmp_path, capsys):
+    _, history = _elastic_run(tmp_path, "--elastic-remesh", "relaunch")
+    assert "warning: --elastic-remesh relaunch without --target-world" in \
+        capsys.readouterr().out
+    assert _comparable(history) == _history(tmp_path)
+
+
+def _plan_out_on_exit_75(tmp_path, capsys):
+    """World 1 under --target-world 2, with rank 1 beating from outside the
+    world: the leader plans a grow, checkpoints, writes the plan atomically
+    and exits 75."""
+    from repro_torch.distributed import FileHeartbeatTransport, latest_step
+
+    stop = threading.Event()
+
+    def announce():
+        hb = FileHeartbeatTransport(str(tmp_path / "hb"))
+        step = 0
+        while not stop.is_set():
+            hb.emit(1, step)
+            step += 1
+            time.sleep(0.002)
+
+    announcer = threading.Thread(target=announce, daemon=True)
+    announcer.start()
+    try:
+        with pytest.raises(SystemExit) as exc:
+            _elastic_run(tmp_path, "--heartbeat", f"file:{tmp_path / 'hb'}",
+                         "--elastic-remesh", "relaunch", "--target-world", "2",
+                         "--plan-out", str(tmp_path / "plan.json"))
+    finally:
+        stop.set()
+        announcer.join()
+    assert exc.value.code == 75
+    plan = json.loads((tmp_path / "plan.json").read_text())
+    assert (plan["kind"], plan["readmitted_workers"], plan["decided_by"]) == ("grow", [1], 0)
+    assert plan["step"] == latest_step(str(tmp_path / "ck"))
+    assert sorted(os.listdir(tmp_path)) == ["ck", "hb", "plan.json"]  # no temp file left
+    assert "re-mesh requested (exit 75)" in capsys.readouterr().out
+
+
+ELASTIC_FLAG_CASES = {f.__name__.lstrip("_"): f for f in (
+    _heartbeat_needs_elastic, _a_group_needs_relaunch, _elastic_alone_trains_all_healthy,
+    _heartbeat_file_transport_trains, _relaunch_without_target_world_warns,
+    _plan_out_on_exit_75)}
+
+
+@pytest.mark.parametrize("case", sorted(ELASTIC_FLAG_CASES))
+def test_elastic_flags(tmp_path, capsys, case):
+    """The six elastic flags: ``--elastic``, ``--heartbeat``,
+    ``--heartbeat-timeout``, ``--elastic-remesh``, ``--target-world`` and
+    ``--plan-out``, and the checks that refuse their bad combinations."""
+    ELASTIC_FLAG_CASES[case](tmp_path, capsys)
+
+
+@pytest.mark.parametrize("age,dead", [(1.0, [1]), (0.0, None)])
+def test_a_failed_collective_is_a_peer_death_only_if_its_beats_went_silent(age, dead):
+    """After a failed collective the survivor exits 75 when a peer's beat is
+    older than the heartbeat timeout (and hands it to leader succession);
+    when every peer still beats, the failure is not a peer's death and the
+    launcher re-raises it."""
+    from types import SimpleNamespace
+
+    import repro_torch.launch.train as launcher
+
+    seen = []
+    pipe = SimpleNamespace(world=2, dataplane=SimpleNamespace(process_ranks=[0]),
+                           succeed_as_leader=lambda ranks: seen.append(ranks))
+    transport = SimpleNamespace(snapshot=lambda: {0: {"step": 3, "age": 0.0},
+                                                  1: {"step": 3, "age": age}})
+    args = SimpleNamespace(heartbeat_timeout=0.05)
+    if dead is None:
+        assert launcher._succeed(pipe, transport, args, [], RuntimeError("gloo")) is None
+        assert seen == []
+    else:
+        with pytest.raises(SystemExit) as exc:
+            launcher._succeed(pipe, transport, args, [], RuntimeError("gloo"))
+        assert exc.value.code == 75 and seen == [dead]
 
 
 def test_the_default_device_is_cuda_and_never_falls_back():

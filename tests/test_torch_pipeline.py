@@ -24,7 +24,7 @@ from repro_torch.core import IndexDataset, Placement, WindowSpec
 from repro_torch.interop import params_from_jax
 from repro_torch.models import pgt_dcrnn as tm
 from repro_torch.optim import AdamConfig
-from repro_torch.pipeline import PipelineConfig, build_pipeline
+from repro_torch.pipeline import ElasticConfig, PipelineConfig, build_pipeline
 from repro_torch.train import TrainLoopConfig
 
 NODES, ENTRIES, HORIZON, BATCH, HIDDEN, LR = 16, 300, 4, 8, 8, 5e-3
@@ -182,7 +182,12 @@ def test_options_of_later_slices_raise(slice_setup, change):
 
 
 def test_elastic_raises(slice_setup):
+    """An elastic fit needs ``loop.ckpt_dir`` (the re-mesh restores from it),
+    as JAX tests/test_elastic_engine.py holds."""
     series, sup, kw, jparams = slice_setup
-    with pytest.raises(NotImplementedError):
-        build_pipeline(series, WindowSpec(horizon=HORIZON), lambda p, x, y: (x.sum(), {}),
-                       {}, PipelineConfig(device="cpu"), elastic=object())
+    pipe = build_pipeline(series, WindowSpec(horizon=HORIZON),
+                          lambda p, x, y: ((x.sum() * p["w"]).sum(), {}),
+                          {"w": torch.ones(1)}, PipelineConfig(device="cpu", world=4),
+                          elastic=ElasticConfig(clock=lambda: 0.0))
+    with pytest.raises(ValueError, match="ckpt_dir"):
+        pipe.fit(eval_fn=None)
