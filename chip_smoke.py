@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's six main paths through their user entry points, each at
+Drives the port's seven main paths through their user entry points, each at
 the full width of a registered arch, with every kernel count set to 0 just
 before a path and read just after it:
 
@@ -91,6 +91,23 @@ before a path and read just after it:
   It prints the ms from each kill to the survivor's exit and the seconds
   from each relaunch to its first step.
 
+- the §5.5 models (the paper's Table 6 path) over a PeMS-Bay-shaped graph
+  (325 nodes, 2 features, the uncut 52,105 entries, batch 32, 12 in / 12
+  out): (a) A3T-GCN (hidden 32) for 20 steps at lr 5e-3 through
+  ``build_pipeline(..., gather="pallas")`` ("index") and the same 20
+  batches of window ids through ``make_train_step`` over every window
+  materialised on the card ("base", 3,249,916,800 bytes): losses, final
+  parameters and the test MSE of 64 windows must be equal bit for bit; it
+  prints each arm's peak memory and step ms (timed in turns) and the bytes
+  of the resident series and starts against the materialised windows.
+  (b) ST-LLM at ``STLLMConfig``'s width (d_model 256, 6 layers, 8 heads,
+  d_ff 1,024; the 325 node tokens through the LM ``backbone``) for 20
+  steps at lr 1e-3, then ``evaluate(split="test")``: losses finite, and
+  ``embed``, ``lm_head`` and ``tod``, which no loss reads, unchanged.
+  (c) ``window_gather`` at [52105, 650]: the vector route (2,600-byte
+  rows), bit-exact against its plain version, timed in turns with
+  ``index_select``.
+
 Phases: device (card name and power limit; TF32 off for matmuls and cuDNN);
 build (the CUDA kernels compiled from ``src/repro_torch``, one nvcc per
 source in parallel, and each library's count of tensor-core ``HMMA``
@@ -114,7 +131,8 @@ k-th one strictly inside each rank's shard, 5 batches of 16 a rank); the
 world-1 launcher run on 600 entries; the elastic processes on the
 launcher's default 2,000 entries (43 steps).  The ST-GNN series has 8,640 entries (30 days of 5-minute bins)
 instead of PeMS-All-LA's 105,120, and the train split is cut to the 20
-steps' 640 windows (5 steps' 160 on the dispatch path).  The dcrnn-pems
+steps' 640 windows (5 steps' 160 on the dispatch path; 640 in both
+§5.5 models).  The dcrnn-pems
 series has 104 entries instead of the 105,120 of a year: 81 windows, so one
 epoch is 7 steps of 8 (8 val, 16 test windows).  The serving cell
 cuts traffic only (16 requests, prompt lengths drawn from 128, 256 and 512
@@ -125,7 +143,8 @@ last line; exits non-zero on any failure, and without a card.
 
 Run from the repository root:  python3 chip_smoke.py [--profile]
 (``--profile`` adds a torch.profiler breakdown of one train step and one
-forecast batch of each ST-GNN model, and of one decode step.)
+forecast batch of each ST-GNN model, of one decode step, and of one train
+step of each A3T-GCN arm and of ST-LLM.)
 """
 from __future__ import annotations
 
@@ -472,11 +491,60 @@ def compare_forecast(pipe, state, mae):
     check(rel <= EVAL_RTOL, "forecast through hop_project disagrees with the plain hops")
 
 
-def phase_times(pipe, fpipe, state, supports, errs) -> list[dict]:
+def gather_times(series, gen, span: int = 2 * HORIZON) -> dict:
+    """``window_gather`` of BATCH windows of ``span`` rows from ``series``
+    ([T, C]), cycling over 64 batches of starts drawn over the whole series
+    (as full training draws them), so most rows come from device memory and
+    not from L2: the kernel and ``index_select`` in turns (index_select,
+    kernel, kernel, index_select, twice; each turn a median of 5 means of 20
+    calls), the plain version, the bytes bound and the launch shape."""
     from repro_torch.kernels.common import sm_count
-    from repro_torch.kernels.diffusion_conv.kernel import hop_project, hop_project_plain
     from repro_torch.kernels.window_gather.kernel import launch_shape, window_gather
     from repro_torch.kernels.window_gather.ref import window_gather_ref
+
+    starts = [torch.randint(0, series.shape[0] - span + 1, (BATCH,),
+                            device="cuda", generator=gen, dtype=torch.int32)
+              for _ in range(64)]
+    it = {"i": 0}
+
+    def cycle(fn):
+        def call():
+            fn(starts[it["i"] % len(starts)])
+            it["i"] += 1
+        return call
+
+    offs = torch.arange(span, device="cuda", dtype=torch.int32)
+    flat_idx = [(s[:, None] + offs).reshape(-1) for s in starts]
+    lib_it = {"i": 0}
+
+    def lib_gather():
+        series.index_select(0, flat_idx[lib_it["i"] % len(flat_idx)])
+        lib_it["i"] += 1
+
+    turns = in_turns({"index_select": lib_gather,
+                      "kernel": cycle(lambda s: window_gather(series, s, span=span))},
+                     inner=20, device_only=True)
+    plain = median_ms(cycle(lambda s: window_gather_ref(series, s, span=span)),
+                      inner=20, device_only=True)
+    row_bytes = series.shape[1] * series.element_size()
+    nbytes = 2 * BATCH * span * row_bytes + BATCH * 4
+    route, blocks = launch_shape(BATCH, span, row_bytes, aligned=series.data_ptr() % 16 == 0,
+                                 sms=sm_count(series.device))
+    return {"ms": turns["kernel"], "library_ms": turns["index_select"], "plain_ms": plain,
+            "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bytes": nbytes,
+            "row_bytes": row_bytes, "route": route, "blocks": blocks}
+
+
+def log_gather_times(label: str, g: dict) -> None:
+    log(f"{label} ({g['route']} route, {g['blocks']} blocks, {g['row_bytes']}-byte "
+        f"rows) {g['ms']:.5f} ms, plain {g['plain_ms']:.5f} ms, index_select "
+        f"{g['library_ms']:.5f} ms (kernel and index_select in turns: "
+        f"{g['ms'] / g['library_ms']:.3f}x), bound {g['bound_ms']:.5f} ms "
+        f"({g['bytes'] / g['ms'] / 1e6:.1f} GB/s, {g['bound_ms'] / g['ms']:.1%} of the bound)")
+
+
+def phase_times(pipe, fpipe, state, supports, errs) -> list[dict]:
+    from repro_torch.kernels.diffusion_conv.kernel import hop_project, hop_project_plain
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     rows = pipe.dataplane.epoch_global(0)
@@ -496,43 +564,7 @@ def phase_times(pipe, fpipe, state, supports, errs) -> list[dict]:
         f"forecast batch {fc_ms:.3f} ms through hop_project, {plain_fc_ms:.3f} ms "
         f"with plain hops (median of 5)")
 
-    # window_gather at its main-path shape, cycling over 64 batches of starts
-    # drawn over the whole series (as full training draws them), so most
-    # rows come from device memory and not from L2.
-    series = pipe.dataset.series.reshape(pipe.dataset.entries, -1)
-    span = 2 * HORIZON
-    starts = [torch.randint(0, pipe.dataset.entries - span + 1, (BATCH,),
-                            device="cuda", generator=gen, dtype=torch.int32)
-              for _ in range(64)]
-    it = {"i": 0}
-
-    def cycle(fn):
-        def call():
-            fn(starts[it["i"] % len(starts)])
-            it["i"] += 1
-        return call
-
-    offs = torch.arange(span, device="cuda", dtype=torch.int32)
-    flat_idx = [(s[:, None] + offs).reshape(-1) for s in starts]
-    lib_it = {"i": 0}
-
-    def lib_gather():
-        series.index_select(0, flat_idx[lib_it["i"] % len(flat_idx)])
-        lib_it["i"] += 1
-
-    # The kernel and index_select in turns (index_select, kernel, kernel,
-    # index_select, twice), each turn a median of 5 means of 20 calls.
-    turns = in_turns({"index_select": lib_gather,
-                      "kernel": cycle(lambda s: window_gather(series, s, span=span))},
-                     inner=20, device_only=True)
-    g_ms, g_lib = turns["kernel"], turns["index_select"]
-    g_plain = median_ms(cycle(lambda s: window_gather_ref(series, s, span=span)),
-                        inner=20, device_only=True)
-    row_bytes = series.shape[1] * series.element_size()
-    g_bytes = 2 * BATCH * span * row_bytes + BATCH * 4
-    g_bound = g_bytes / PEAK_BYTES_PER_S * 1e3
-    route, blocks = launch_shape(BATCH, span, row_bytes, aligned=series.data_ptr() % 16 == 0,
-                                 sms=sm_count(series.device))
+    g = gather_times(pipe.dataset.series.reshape(pipe.dataset.entries, -1), gen)
 
     # hop_project at both main-path shapes (H = 128 for the ru gate, 64 for
     # the c gate: equal launch counts on the path), reported as their mean.
@@ -560,18 +592,15 @@ def phase_times(pipe, fpipe, state, supports, errs) -> list[dict]:
         log(f"time: hop_project H={h}: {h_ms[-1]:.4f} ms, plain {h_plain[-1]:.4f} ms, "
             f"torch.matmul S@Z {h_lib[-1]:.4f} ms, bound {h_bound[-1]:.4f} ms (3xTF32 operations; {fp32_bound:.4f} ms by fp32 "
             f"on CUDA cores) ({flops / h_ms[-1] / 1e9:.1f} fp32-equivalent TFLOP/s)")
-    log(f"time: window_gather ({route} route, {blocks} blocks, {row_bytes}-byte rows) "
-        f"{g_ms:.5f} ms, plain {g_plain:.5f} ms, index_select {g_lib:.5f} ms (kernel and "
-        f"index_select in turns: {g_ms / g_lib:.3f}x), bound {g_bound:.5f} ms "
-        f"({g_bytes / g_ms / 1e6:.1f} GB/s, {g_bound / g_ms:.1%} of the bound)")
+    log_gather_times("time: window_gather", g)
     mean = statistics.fmean
     return [
         {"name": "window_gather", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/window_gather.cu",
          "replaces": "src/repro/kernels/window_gather/kernel.py:36",
          "launches": None, "max_abs_err": errs["window_gather"],
-         "ms": g_ms, "plain_ms": g_plain, "bound_ms": g_bound,
-         "bound_by": "bytes", "library_ms": g_lib},
+         "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
+         "bound_by": "bytes", "library_ms": g["library_ms"]},
         {"name": "hop_project", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/hop_project.cu",
          "replaces": "src/repro/kernels/diffusion_conv/kernel.py:58",
@@ -581,9 +610,29 @@ def phase_times(pipe, fpipe, state, supports, errs) -> list[dict]:
     ]
 
 
-def phase_profile(pipe, fpipe, state) -> None:
+def profile_step(label: str, fn) -> None:
+    """torch.profiler over one call of ``fn`` after a warm-up: the kernels
+    by device time, and the device's busy time against the host's wall."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    # the kernels' own events, as the table's "Self CUDA time total" sums them
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type == DeviceType.CUDA) / 1e3
+    log(f"profile: {label}: device busy {busy:.3f} ms of {wall:.3f} ms wall "
+        f"({1 - busy / wall:.1%} idle)")
+    log(events.table(sort_by="self_cuda_time_total", row_limit=12))
+
+
+def phase_profile(pipe, fpipe, state) -> None:
     rows = pipe.dataplane.epoch_global(0)
     batch = pipe.batch_of_starts(rows[1])
     eval_rows, _ = fpipe.dataplane.eval_grid("test")
@@ -592,13 +641,7 @@ def phase_profile(pipe, fpipe, state) -> None:
             ("train step", lambda: pipe.train_step(state, batch)),
             ("forecast batch", lambda: fpipe._eval_loss(state["params"], ebatch))):
         with torch.no_grad() if label == "forecast batch" else torch.enable_grad():
-            fn()
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                fn()
-                torch.cuda.synchronize()
-        log(f"profile: {label}")
-        log(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=12))
+            profile_step(label, fn)
 
 
 def phase_prefetch(raw, supports, sync_losses) -> None:
@@ -872,24 +915,16 @@ def phase_dcrnn_kernels(supports, small_support, raw) -> None:
 
 
 def profile_dcrnn(pipes, params, batch) -> None:
-    from torch.profiler import ProfilerActivity, profile
-
-    st = {"s": None}
     from repro_torch.optim import AdamConfig
     from repro_torch.train.loop import init_train_state
-    st["s"] = init_train_state(params, AdamConfig())
+
+    state = init_train_state(params, AdamConfig())
     for label, fn in (("dcrnn train step",
-                       lambda: pipes[False].train_step(st["s"], batch)),
+                       lambda: pipes[False].train_step(state, batch)),
                       ("dcrnn forecast batch",
                        lambda: pipes[True]._eval_loss(params, batch))):
         with torch.no_grad() if "forecast" in label else torch.enable_grad():
-            fn()
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                fn()
-                torch.cuda.synchronize()
-        log(f"profile: {label}")
-        log(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=12))
+            profile_step(label, fn)
 
 
 def phase_dcrnn(work) -> tuple:
@@ -1140,14 +1175,7 @@ def phase_serve_times(cfg, eng, groups, steps, wall, n_tok, launches, err) -> di
 
 
 def profile_decode(eng) -> None:
-    from torch.profiler import ProfilerActivity, profile
-
-    plane = eng.planes[0]
-    plane.decode()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        plane.decode()
-    log("profile: decode step")
-    log(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=15))
+    profile_step("decode step", eng.planes[0].decode)
 
 
 # ------------------------------------------------------- flash attention
@@ -1960,11 +1988,257 @@ def _cycle_kill_rank0(fleet) -> None:
     check(codes == [0] and resumed == plan["step"], f"(c) world 1: {fleet.tail([b])}")
 
 
+# ------------------------------------- the §5.5 models: A3T-GCN and ST-LLM
+BAY_NODES, BAY_ENTRIES = 325, 52_105  # PeMS-Bay (Table 1), uncut
+S55_STEPS = 20         # train steps of each arm, BATCH windows each
+A3T_LR, STLLM_LR = 5e-3, 1e-3
+S55_TEST_WINDOWS = 64  # test MSE of both A3T-GCN arms
+
+
+def bay_graph_and_data():
+    """A PeMS-Bay-shaped graph and series from SEED: the symmetric-normalised
+    adjacency (A3T-GCN's GCN support) and all 52,105 entries."""
+    from repro_torch.data import (gaussian_adjacency, make_traffic_series,
+                                  random_sensor_coords, sym_norm_adjacency)
+
+    t0 = time.perf_counter()
+    adj = gaussian_adjacency(random_sensor_coords(BAY_NODES, seed=SEED))
+    raw = make_traffic_series(BAY_ENTRIES, BAY_NODES, FEATURES, seed=SEED, adjacency=adj)
+    log(f"section 5.5 models: synthetic PeMS-Bay-shaped series {raw.shape} ({raw.nbytes:,} "
+        f"bytes, uncut) in {time.perf_counter() - t0:.1f} s")
+    return torch.as_tensor(sym_norm_adjacency(adj), dtype=torch.float32, device="cuda"), raw
+
+
+def s55_dataset(raw):
+    """The series' windows (12 in, 12 out), the train split cut to the
+    S55_STEPS batches."""
+    from repro_torch.core import IndexDataset, WindowSpec
+
+    spec = WindowSpec(horizon=HORIZON, input_len=HORIZON)
+    ds = IndexDataset.from_raw(raw, spec)
+    return spec, dataclasses.replace(ds, train_windows=ds.train_windows[:S55_STEPS * BATCH])
+
+
+def s55_fit(spec, ds, loss_fn, params, lr: float):
+    """One epoch of S55_STEPS steps through ``build_pipeline(...,
+    gather="pallas")``, each step timed on the host around a synchronize.
+    Returns (pipe, state, losses, step ms, the fit's peak bytes above what
+    was allocated before it)."""
+    from repro_torch.optim import AdamConfig
+    from repro_torch.pipeline import PipelineConfig, build_pipeline
+    from repro_torch.train import TrainLoopConfig
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    pipe = build_pipeline(None, spec, loss_fn, params,
+                          PipelineConfig(batch_per_rank=BATCH, gather="pallas", seed=SEED,
+                                         device="cuda", adam=AdamConfig(lr=lr),
+                                         loop=TrainLoopConfig(epochs=1, log_every=1)),
+                          dataset=ds)
+    with StepTimer() as timer:
+        state, history = pipe.fit(eval_fn=None)
+    peak = torch.cuda.max_memory_allocated() - before
+    losses = [r["loss"] for r in history if "epoch_time_s" not in r]
+    check(len(losses) == S55_STEPS, f"expected {S55_STEPS} steps, got {len(losses)}")
+    check(all(np.isfinite(losses)), f"non-finite training loss: {losses}")
+    return pipe, state, losses, timer.ms, peak
+
+
+def phase_a3tgcn(a_hat, spec, ds, profile: bool) -> int:
+    """Table 6: A3T-GCN trained on index-batched windows (the gather from the
+    resident series through the CUDA kernel) and on materialised windows,
+    the same S55_STEPS batches of window ids, bit-equal.  Returns
+    window_gather's count read just after the index arm (its fit and test
+    batch); the base arm and the timings run after it."""
+    from repro_torch.core.batching import materialize_windows
+    from repro_torch.kernels.window_gather.kernel import window_gather
+    from repro_torch.models import a3tgcn
+    from repro_torch.optim import AdamConfig
+    from repro_torch.train.loop import init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    cfg = a3tgcn.A3TGCNConfig(num_nodes=BAY_NODES, in_features=FEATURES)
+    params = a3tgcn.init(torch.Generator().manual_seed(SEED), cfg, device="cuda")
+
+    def loss_fn(p, x, y):
+        return a3tgcn.loss_fn(p, cfg, a_hat, x, y), {}
+
+    pipe, index_state, index_losses, index_ms, index_peak = s55_fit(
+        spec, ds, loss_fn, params, A3T_LR)
+    test_ids = ds.test_windows[:S55_TEST_WINDOWS]
+    with torch.no_grad():
+        index_mse = float(pipe._eval_loss(index_state["params"],
+                                          pipe.batch_of_starts(test_ids))[0])
+    launches = window_gather.launches
+    resident = pipe.dataset.series.nbytes + pipe.dataset.starts.nbytes
+    grid = pipe.dataplane.epoch_global(0)
+
+    # The base arm: every window of the series materialised (Alg. 1) and
+    # moved to the card, then the same batches of ids through make_train_step.
+    t0 = time.perf_counter()
+    xs, ys = materialize_windows(np.asarray(ds.series), ds.starts, HORIZON, HORIZON)
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    xs_d, ys_d = torch.as_tensor(xs).to("cuda"), torch.as_tensor(ys).to("cuda")
+    materialised = xs_d.nbytes + ys_d.nbytes
+    del xs, ys
+
+    def loss_base(p, ids):
+        return a3tgcn.loss_fn(p, cfg, a_hat, xs_d[ids], ys_d[ids]), {}
+
+    adam = AdamConfig(lr=A3T_LR)
+    step = make_train_step(loss_base, adam, lambda s: A3T_LR)
+    state, base_losses, base_ms = init_train_state(params, adam), [], []
+    for ids in grid:
+        ids = torch.as_tensor(ids, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, ids)
+        torch.cuda.synchronize()
+        base_ms.append((time.perf_counter() - t0) * 1e3)
+        base_losses.append(float(metrics["loss"]))
+    with torch.no_grad():
+        base_mse = float(loss_base(state["params"], torch.as_tensor(test_ids, device="cuda"))[0])
+    base_peak = torch.cuda.max_memory_allocated() - before
+
+    # Each arm's step on its trained state and the first batch, timed in
+    # turns (index, base, base, index, twice; CUDA events around each step).
+    st = {"index": index_state, "base": state}
+    ibatch, bids = pipe.batch_of_starts(grid[0]), torch.as_tensor(grid[0], device="cuda")
+    arms = {"index": lambda: pipe.train_step(st["index"], ibatch),
+            "base": lambda: step(st["base"], bids)}
+    turns = in_turns(arms)
+    if profile:
+        for name, fn in arms.items():
+            profile_step(f"A3T-GCN {name} train step", fn)
+    del pipe, xs_d, ys_d
+
+    same_params = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(state["params"]), tree_leaves(index_state["params"]), strict=True))
+    log(f"section 5.5 models (a) A3T-GCN, hidden {cfg.hidden}, {BAY_NODES} nodes, "
+        f"{ds.n_windows:,} windows (train cut to {len(ds.train_windows)} = {S55_STEPS} "
+        f"steps of {BATCH}), lr {A3T_LR}: loss {index_losses[0]:.6f} -> "
+        f"{index_losses[-1]:.6f}")
+    log(f"section 5.5 models (a) index: step {turns['index']:.3f} ms in turns "
+        f"({statistics.median(index_ms[1:]):.3f} ms median of steps 2..{S55_STEPS} "
+        f"in training), peak {index_peak:,} bytes above the arm's start, test MSE "
+        f"{index_mse:.6f} over {len(test_ids)} windows")
+    log(f"section 5.5 models (a) base: step {turns['base']:.3f} ms in turns "
+        f"({statistics.median(base_ms[1:]):.3f} ms in training), peak {base_peak:,} "
+        f"bytes above the arm's start, test MSE {base_mse:.6f}; windows materialised "
+        f"on the host in {host_s:.1f} s")
+    log(f"section 5.5 models (a) memory: resident series + starts {resident:,} bytes against "
+        f"{materialised:,} bytes of materialised windows: {1 - resident / materialised:.2%} "
+        f"less (peaks: {1 - index_peak / base_peak:.2%} less)")
+    log(f"section 5.5 models (a) base against index: losses "
+        f"{'equal' if base_losses == index_losses else 'DIFFER'}, parameters "
+        f"{'equal' if same_params else 'DIFFER'} bit for bit, test MSE "
+        f"{'equal' if base_mse == index_mse else 'DIFFERS'}")
+    check(materialised == ds.nbytes_materialized(), "materialised bytes off the count")
+    check(base_losses == index_losses, f"base losses {base_losses} differ from the "
+                                       f"index-batched {index_losses}")
+    check(same_params, "base and index arms end with different parameters")
+    check(base_mse == index_mse, "base and index arms' test MSE differ")
+    return launches
+
+
+def phase_stllm(spec, ds, profile: bool) -> int:
+    """ST-LLM at full width on the index-batched pipeline: S55_STEPS steps,
+    then evaluate(split="test"); the leaves no loss reads stay as drawn.
+    Returns window_gather's count read just after the evaluation."""
+    from repro_torch.kernels.window_gather.kernel import window_gather
+    from repro_torch.models import stllm
+    from repro_torch.tree import tree_leaves
+
+    cfg = stllm.STLLMConfig(num_nodes=BAY_NODES, in_features=FEATURES)
+    params = stllm.init(torch.Generator().manual_seed(SEED), cfg, device="cuda")
+    unused = {"backbone/embed": params["backbone"]["embed"].clone(),
+              "backbone/lm_head/w": params["backbone"]["lm_head"]["w"].clone(),
+              "tod": params["tod"].clone()}
+    n_params = sum(t.numel() for t in tree_leaves(params))
+
+    def loss_fn(p, x, y):
+        return stllm.loss_fn(p, cfg, x, y), {}
+
+    pipe, state, losses, ms, peak = s55_fit(spec, ds, loss_fn, params, STLLM_LR)
+    t0 = time.perf_counter()
+    test_mae = pipe.evaluate(state["params"], split="test")
+    eval_s = time.perf_counter() - t0
+    launches = window_gather.launches
+    p = state["params"]
+    after = {"backbone/embed": p["backbone"]["embed"],
+             "backbone/lm_head/w": p["backbone"]["lm_head"]["w"], "tod": p["tod"]}
+    kept = {k: bool(torch.equal(unused[k], after[k])) for k in unused}
+    log(f"section 5.5 models (b) ST-LLM, d_model {cfg.d_model}, {cfg.layers} layers, "
+        f"{cfg.n_heads} heads, d_ff {cfg.d_ff}, {n_params:,} parameters, {BAY_NODES} node "
+        f"tokens, lr {STLLM_LR}: loss {losses[0]:.6f} -> {losses[-1]:.6f}; step "
+        f"{statistics.median(ms[1:]):.3f} ms (median of steps 2..{S55_STEPS}); peak "
+        f"{peak:,} bytes above the arm's start; test MAE {test_mae:.6f} in "
+        f"{eval_s:.2f} s; unchanged after the steps: {kept}")
+    if profile:
+        batch = pipe.batch_of_starts(pipe.dataplane.epoch_global(0)[0])
+        profile_step("ST-LLM train step", lambda: pipe.train_step(state, batch))
+    check(np.isfinite(test_mae), "non-finite ST-LLM test MAE")
+    check(all(kept.values()), f"ST-LLM leaves no loss reads changed: {kept}")
+    return launches
+
+
+def phase_bay_gather(ds) -> dict:
+    """window_gather at this path's shape, [52105, 650] (2,600-byte rows):
+    the vector route, bit-exact against its plain version, timed."""
+    from repro_torch.kernels.window_gather.kernel import window_gather
+    from repro_torch.kernels.window_gather.ref import window_gather_ref
+
+    span = 2 * HORIZON
+    series = torch.as_tensor(ds.series).reshape(BAY_ENTRIES, -1).to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    starts = torch.randint(0, BAY_ENTRIES - span + 1, (BATCH,), device="cuda",
+                           generator=gen, dtype=torch.int32)
+    out = window_gather(series, starts, span=span)
+    torch.cuda.synchronize()
+    want = window_gather_ref(series, starts, span=span)
+    check(torch.equal(out, want), "window_gather differs from its plain version at "
+                                  f"{tuple(series.shape)}")
+    g = gather_times(series, gen)
+    log(f"section 5.5 models (c) window_gather {tuple(series.shape)}, {BATCH} windows of "
+        f"{span}: bit-exact")
+    log_gather_times("section 5.5 models (c) time: window_gather", g)
+    check(g["route"] == "vector", f"route {g['route']} at {g['row_bytes']}-byte rows")
+    return g
+
+
+def phase_section55(profile: bool) -> int:
+    """The §5.5 models, window_gather's count set to 0 just before A3T-GCN's
+    index arm and before ST-LLM and read just after each; then the kernel
+    at this path's shape.  Returns the path's launches."""
+    from repro_torch.kernels.window_gather.kernel import window_gather
+
+    t0 = time.perf_counter()
+    a_hat, raw = bay_graph_and_data()
+    spec, ds = s55_dataset(raw)
+    window_gather.launches = 0
+    a_launches = phase_a3tgcn(a_hat, spec, ds, profile)
+    window_gather.launches = 0
+    b_launches = phase_stllm(spec, ds, profile)
+    launches = a_launches + b_launches
+    log(f"section 5.5 models path launches: window_gather {launches} (A3T-GCN "
+        f"{a_launches}, ST-LLM {b_launches})")
+    check(launches > 0, "window_gather was not launched on the section 5.5 models path")
+    phase_bay_gather(ds)
+    torch.cuda.empty_cache()
+    log(f"section 5.5 models: phase wall {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
                         help="add a torch.profiler breakdown of one train "
-                             "step, one forecast batch and one decode step")
+                             "step, one forecast batch and one decode step, "
+                             "and of the section 5.5 models' train steps")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA card",
@@ -2079,6 +2353,10 @@ def main() -> int:
         kernels[0]["launches"] += el_launches
         phase_elastic_processes(work)
     log(f"elastic: phase wall {time.perf_counter() - t0:.1f} s")
+
+    # The section 5.5 models: window_gather's count from 0 before A3T-GCN's
+    # two arms and ST-LLM, read after; the count joins the kernel's launches.
+    kernels[0]["launches"] += phase_section55(args.profile)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -12,7 +12,9 @@ naming their ``ROADMAP.md`` item; paged caches wait for the paged plane.
 
 Caches are updated in place: where the JAX functions return a new cache
 pytree, these write the one they are given (it is also returned), so a
-decode step allocates no second copy of the pool.
+decode step allocates no second copy of the pool.  Train mode (``forward``,
+``backbone``) has no cache and writes nothing in place, so autograd runs
+through it; ST-LLM trains its node tokens through ``backbone``.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import itertools
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models.lm import rglru
@@ -39,9 +42,9 @@ from repro_torch.tree import tree_map
 BLOCKWISE_THRESHOLD = 2048  # switch to flash-style attention above this seq len
 
 _LATER = {
-    "mla": "MLA is not ported yet (ROADMAP.md queue 1, item 11)",
-    "moe": "MoE is not ported yet (ROADMAP.md queue 1, item 11)",
-    "rwkv": "RWKV-6 is not ported yet (ROADMAP.md queue 1, item 11)",
+    "mla": "MLA is not ported yet (ROADMAP.md queue 1, item 6)",
+    "moe": "MoE is not ported yet (ROADMAP.md queue 1, item 6)",
+    "rwkv": "RWKV-6 is not ported yet (ROADMAP.md queue 1, item 6)",
 }
 
 
@@ -271,21 +274,32 @@ def _write(dst: torch.Tensor, src: torch.Tensor) -> None:
 
 
 def _run_stages(params, cfg: LMConfig, x, positions, *, mode, caches=None,
-                lengths=None):
+                lengths=None, remat=False):
     """Each stage's repeats in order; a layer's new cache is written into its
-    slice of the stacked cache.  Returns (x, caches)."""
+    slice of the stacked cache.  Returns (x, caches).
+
+    ``remat`` (train mode only: no caches): each repeat's layers run under
+    ``torch.utils.checkpoint``, as the JAX package wraps its scan body in
+    ``jax.checkpoint``, so the backward pass recomputes their activations.
+    """
     plan = stage_plan(cfg)
     for (specs, repeats), stage_p, stage_c in zip(
             plan, params["stages"], caches or [None] * len(plan)):
         for r in range(repeats):
             lp = tree_map(lambda t: t[r], stage_p)
             lc = None if stage_c is None else tree_map(lambda t: t[r], stage_c)
-            for i, sp in enumerate(specs):
-                sub_c = None if lc is None else lc[f"sub{i}"]
-                x, nc = _layer_apply(lp[f"sub{i}"], cfg, sp, x, positions,
-                                     mode=mode, cache=sub_c, lengths=lengths)
-                if sub_c is not None:
-                    tree_map(_write, sub_c, nc)
+
+            def body(x, lp=lp, lc=lc, specs=specs):
+                for i, sp in enumerate(specs):
+                    sub_c = None if lc is None else lc[f"sub{i}"]
+                    x, nc = _layer_apply(lp[f"sub{i}"], cfg, sp, x, positions,
+                                         mode=mode, cache=sub_c, lengths=lengths)
+                    if sub_c is not None:
+                        tree_map(_write, sub_c, nc)
+                return x
+
+            x = (checkpoint(body, x, use_reentrant=False)
+                 if remat and torch.is_grad_enabled() else body(x))
     return x, caches
 
 
@@ -327,6 +341,23 @@ def forward(params, cfg: LMConfig, tokens):
     x, _ = _run_stages(params, cfg, x, positions, mode="train")
     x = rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
     return logits_fn(params, cfg, x)
+
+
+def backbone(params, cfg: LMConfig, x_embeds, *, remat=False):
+    """Run the block stack on precomputed embeddings (ST-LLM's node tokens).
+    x_embeds: [B, S, d] -> (hidden [B, S, d], aux).
+
+    Runs where ``x_embeds`` and ``params`` lie.  ``aux`` is the JAX
+    version's auxiliary loss: a float32 zero, since no ported layer has one
+    (MoE waits).  Train mode writes no cache, so the whole pass is
+    differentiable.
+    """
+    b, s, _ = x_embeds.shape
+    positions = torch.arange(s, device=x_embeds.device)[None].expand(b, s)
+    x = x_embeds.to(_dtype(cfg.dtype))
+    x, _ = _run_stages(params, cfg, x, positions, mode="train", remat=remat)
+    x = rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 # -------------------------------------------------------------------- serving

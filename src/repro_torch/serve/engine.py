@@ -44,7 +44,7 @@ class ServeEngine:
         if serve.block_size is not None:
             raise NotImplementedError(
                 "paged planes (ServeConfig.block_size) are not ported yet "
-                "(ROADMAP.md queue 1, item 12)")
+                "(ROADMAP.md queue 1, item 7)")
         self.serve = serve
         #: default backpressure bound: 4 waves of the whole fleet
         if queue_limit is None:

@@ -4,7 +4,7 @@ A plane owns every device-resident object (the compute-dtype weights, the
 slot-pool cache) for one pool; the engine above it only moves token ids and
 bookkeeping.  The port's plane lives on one device: the JAX package's
 (data × model) mesh and its ``PagedInferencePlane`` wait for later slices
-(ROADMAP.md queue 1, items 9 and 12), and a mesh raises here.
+(ROADMAP.md queue 1, item 7), and a mesh raises here.
 
 - ``decode``: one batched decode step over all ``slots`` lanes, retired
   lanes included (their length is 0; their recurrent state, conv tail and
@@ -39,7 +39,7 @@ class InferencePlane:
         if mesh is not None:
             raise NotImplementedError(
                 "sharded planes are not ported yet: the port's InferencePlane "
-                "runs on one device (ROADMAP.md queue 1, item 9)")
+                "runs on one device (ROADMAP.md queue 1, item 7)")
         self.cfg = cfg
         self.serve = serve
         self.device = resolve_device(device)

@@ -3,7 +3,7 @@
 The JAX package draws sampled tokens with request-keyed keys,
 ``fold_in(fold_in(PRNGKey(seed), rid), position)``, so a draw depends only
 on ``(seed, rid, position, logits)``.  Torch cannot reproduce those draws, and
-the port's own keyed sampler waits for ROADMAP.md queue 1, item 12.  Until
+the port's own keyed sampler waits for ROADMAP.md queue 1, item 7.  Until
 then the contract is checked here as in the JAX package, and any sampled
 setting (temperature > 0, top_k, top_p) raises ``NotImplementedError`` at
 config or submit time.  Greedy decoding is exact: the argmax of the raw
@@ -23,7 +23,7 @@ TOP_P_OFF = 1.0
 
 _SAMPLED = ("sampled decoding (temperature > 0, top_k, top_p) is not ported "
             "yet: the port serves greedy requests only (ROADMAP.md queue 1, "
-            "item 12)")
+            "item 7)")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -227,7 +227,10 @@ def make_train_step(
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
         with torch.enable_grad():
             loss, metrics = loss_fn(tree_unflatten(params, leaves), batch)
-            grads = torch.autograd.grad(loss, leaves)
+            # A leaf the loss never reads gets a zero gradient, as under
+            # jax.value_and_grad (AdamW then leaves it as it was).
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
         if gdt is not None:
             grads = [g.to(gdt) for g in grads]
         return loss.detach(), metrics, tree_unflatten(params, list(grads))

@@ -581,3 +581,71 @@ def test_cuda_elastic_shrink_grow_is_bit_equal_to_the_uninterrupted_run(cuda, tm
         [h["val_mae"] for h in smooth_hist if "epoch_time_s" in h]
     for a, b in zip(tree_leaves(smooth), tree_leaves(state), strict=True):
         assert torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+
+
+# ------------------------------------------ the §5.5 models: A3T-GCN, ST-LLM
+BAY_NODES = 325  # PeMS-Bay: 325 x 2 features x 4 bytes = 2,600-byte rows
+
+
+@pytest.mark.cuda
+def test_cuda_window_gather_vector_route_at_pems_bay_rows_is_bit_exact(cuda):
+    """PeMS-Bay's uncut series, [52105, 650] float32: its 2,600-byte rows
+    are not whole 16-byte chunks, so the gather takes the vector route."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    series = torch.randn((52_105, 2 * BAY_NODES), device=cuda, generator=gen)
+    starts = torch.randint(0, 52_105 - 24 + 1, (32,), device=cuda, generator=gen,
+                           dtype=torch.int32)
+    assert wg_kernel.launch_shape(32, 24, series.shape[1] * 4, aligned=True,
+                                  sms=132) == ("vector", 32 * 24)
+    before = wg_kernel.window_gather.launches
+    got = window_gather(series, starts, span=24, use_pallas=True)
+    torch.cuda.synchronize()
+    assert wg_kernel.window_gather.launches == before + 1
+    assert torch.equal(got, window_gather(series, starts, span=24))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["a3tgcn", "stllm"])
+def test_cuda_section55_step_through_the_kernel_gather_is_bit_equal_to_slice(cuda, model):
+    """One index-batched train step of A3T-GCN or ST-LLM over a PeMS-Bay-wide
+    graph: ``gather="pallas"`` (the CUDA kernel) and ``gather="slice"`` give
+    the same loss and parameters bit for bit."""
+    from repro_torch.core import IndexDataset, WindowSpec
+    from repro_torch.data import (gaussian_adjacency, make_traffic_series,
+                                  random_sensor_coords, sym_norm_adjacency)
+    from repro_torch.models import a3tgcn, stllm
+    from repro_torch.pipeline import PipelineConfig, build_pipeline
+    from repro_torch.train.loop import init_train_state
+    from repro_torch.tree import tree_leaves
+
+    spec = WindowSpec(horizon=12, input_len=12)
+    ds = IndexDataset.from_raw(make_traffic_series(400, BAY_NODES), spec)
+    if model == "a3tgcn":
+        cfg = a3tgcn.A3TGCNConfig(num_nodes=BAY_NODES)
+        a_hat = torch.as_tensor(sym_norm_adjacency(gaussian_adjacency(
+            random_sensor_coords(BAY_NODES))), dtype=torch.float32, device=cuda)
+
+        def loss_fn(p, x, y):
+            return a3tgcn.loss_fn(p, cfg, a_hat, x, y), {}
+        init = lambda: a3tgcn.init(torch.Generator().manual_seed(0), cfg, device=cuda)
+    else:
+        cfg = stllm.STLLMConfig(num_nodes=BAY_NODES, d_model=64, layers=2, n_heads=4,
+                                d_ff=128)
+
+        def loss_fn(p, x, y):
+            return stllm.loss_fn(p, cfg, x, y), {}
+        init = lambda: stllm.init(torch.Generator().manual_seed(0), cfg, device=cuda)
+    runs = {}
+    for gather in ("pallas", "slice"):
+        config = PipelineConfig(batch_per_rank=8, gather=gather, device="cuda")
+        params = init()
+        pipe = build_pipeline(None, spec, loss_fn, params, config, dataset=ds)
+        batch = pipe.batch_of_starts(pipe.dataplane.epoch_global(0)[0])
+        before = wg_kernel.window_gather.launches
+        state, metrics = pipe.train_step(init_train_state(params, config.adam), batch)
+        torch.cuda.synchronize()
+        assert wg_kernel.window_gather.launches - before == (gather == "pallas")
+        runs[gather] = (metrics["loss"], tree_leaves(state["params"]))
+    (loss_k, params_k), (loss_s, params_s) = runs["pallas"], runs["slice"]
+    assert torch.equal(loss_k, loss_s) and torch.isfinite(loss_k)
+    assert all(torch.equal(a, b) for a, b in zip(params_k, params_s))
