@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's seven main paths through their user entry points, each at
+Drives the port's eight main paths through their user entry points, each at
 the full width of a registered arch, with every kernel count set to 0 just
 before a path and read just after it:
 
@@ -108,6 +108,26 @@ before a path and read just after it:
   rows), bit-exact against its plain version, timed in turns with
   ``index_select``.
 
+- the rest of the LM family, trained through the launcher's LM path and
+  served through ``ServeEngine``: (a) ``repro_torch.launch.train.main(
+  ["--arch", "rwkv6-1.6b", "--seq-len", "128", "--batch", "8", ...])`` at
+  full width (24 layers, d_model 2,048, vocab 65,536; 1.58 B parameters,
+  f32 master weights, bf16 compute) for one epoch of 6 steps (the ``lm``
+  gather over an int32 token stream), with ``val_loss`` and ``val_ppl`` in
+  the epoch row; it prints each step's host ms around a synchronised step
+  and the peak memory.  (b) deepseek-v2-lite-16b at full width (MLA with
+  kv_lora_rank 512; MoE 64 routed experts top-6 + 2 shared; 15.7 B
+  parameters drawn on the card straight into bf16) serves 16 greedy
+  requests (8 slots, max_len 1,024, 32 new tokens): every request ``ok``,
+  every MoE dispatch's dropped assignments counted (none at decode), and
+  one lane, replayed dropless (capacity factor E / k: which assignments a
+  prefill group drops depends on the group), its prompt prefilled and its
+  generated tokens decoded teacher-forced, ends at most twice as far from
+  a float32 ``forward`` over the same tokens as a bf16 ``forward`` is.  (c) all nine new archs at their smoke
+  configs, float32: 3 launcher steps each, then prefill + 4 decode steps
+  within 1e-4 of a teacher-forced forward.  No kernel runs on this path:
+  the four counts are set to 0 before it and must read 0 after it.
+
 Phases: device (card name and power limit; TF32 off for matmuls and cuDNN);
 build (the CUDA kernels compiled from ``src/repro_torch``, one nvcc per
 source in parallel, and each library's count of tensor-core ``HMMA``
@@ -126,7 +146,10 @@ PyTorch yardstick where one exists: window_gather and index_select in
 turns; linear_scan at every prefill group shape and at decode beside its
 launch floor, the same launch at [1, 1, 32]).
 
-Cuts: the distributed phase trains on a pool of 160 train windows (every
+Cuts: the LM training run's token stream is 196 tokens (68 windows of 129:
+one epoch of 6 steps of 8, 7 val windows); the deepseek serving cell cuts
+traffic only (16 requests, prompts of 128, 256 and 512 tokens).  The
+distributed phase trains on a pool of 160 train windows (every
 k-th one strictly inside each rank's shard, 5 batches of 16 a rank); the
 world-1 launcher run on 600 entries; the elastic processes on the
 launcher's default 2,000 entries (43 steps).  The ST-GNN series has 8,640 entries (30 days of 5-minute bins)
@@ -143,8 +166,9 @@ last line; exits non-zero on any failure, and without a card.
 
 Run from the repository root:  python3 chip_smoke.py [--profile]
 (``--profile`` adds a torch.profiler breakdown of one train step and one
-forecast batch of each ST-GNN model, of one decode step, and of one train
-step of each A3T-GCN arm and of ST-LLM.)
+forecast batch of each ST-GNN model, of one decode step, of one train
+step of each A3T-GCN arm and of ST-LLM, of one rwkv6-1.6b train step and
+of one deepseek-v2-lite-16b decode step.)
 """
 from __future__ import annotations
 
@@ -676,10 +700,15 @@ DC_CKPT_EVERY = 2
 class StepTimer:
     """Host start and end of every train step the engine runs while
     installed (the step ends in a synchronize), by wrapping the step handed
-    to ``run_training``; ``ms`` is each step's duration."""
+    to ``run_training``; ``ms`` is each step's duration.  With
+    ``keep_last``, ``last`` holds the last step function and batch (for a
+    profile of one more step); it pins that step's series, so a run that
+    re-meshes must not keep it."""
 
-    def __init__(self):
+    def __init__(self, keep_last: bool = False):
         self.spans: list[tuple[float, float]] = []
+        self.keep_last = keep_last
+        self.last = None
 
     @property
     def ms(self) -> list[float]:
@@ -699,9 +728,13 @@ class StepTimer:
                 out = step(state, batch)
                 torch.cuda.synchronize()
                 self.spans.append((t0, time.perf_counter()))
+                if self.keep_last:
+                    self.last = (step, batch)
                 return out
 
-            return self._run(**{**kw, "train_step": timed})
+            # the state moves into run_training, so no frame here keeps the
+            # first state alive for the whole run
+            return self._run(**{**kw, "train_step": timed, "state": kw.pop("state")})
 
         engine.run_training = run
         return self
@@ -984,20 +1017,11 @@ def rg_prompts():
     return [rng.integers(0, 256_000, int(n)).astype(np.int32) for n in lens]
 
 
-def phase_serve(cfg, params):
-    """The serving main path: 16 greedy requests through ServeEngine."""
-    from repro_torch.serve import ServeConfig, ServeEngine
-
-    prompts = rg_prompts()
-    log(f"serve: CUTS (traffic only): {RG_REQUESTS} requests, prompt lengths "
-        f"{sorted(p.size for p in prompts)} drawn from {RG_PROMPT_LENS}, "
-        f"{RG_NEW_TOKENS} new tokens each; no width or depth cut")
-    eng = ServeEngine(params, cfg, ServeConfig(slots=RG_SLOTS, max_len=RG_MAX_LEN,
-                                               max_new_tokens=RG_NEW_TOKENS),
-                      planes=1)
+def serve_timed(eng, prompts):
+    """Submit ``prompts`` and run the engine to the end, each prefill group
+    and decode step timed on the host clock to its one device pull.
+    Returns (rids, out, groups [(shape, ms)], steps [ms], wall s)."""
     plane = eng.planes[0]
-    log(f"serve: slot-pool cache {plane.cache_bytes() / 2**20:.1f} MiB "
-        f"({RG_SLOTS} lanes x {RG_MAX_LEN} tokens)")
     groups, steps = [], []
     prefill_into, decode = plane.prefill_into, plane.decode
 
@@ -1014,12 +1038,31 @@ def phase_serve(cfg, params):
         return out
 
     plane.prefill_into, plane.decode = timed_prefill, timed_decode
-    rids = [eng.submit(p) for p in prompts]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = eng.run()
-    wall = time.perf_counter() - t0
-    plane.prefill_into, plane.decode = prefill_into, decode
+    try:
+        rids = [eng.submit(p) for p in prompts]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.run()
+        wall = time.perf_counter() - t0
+    finally:
+        plane.prefill_into, plane.decode = prefill_into, decode
+    return rids, out, groups, steps, wall
+
+
+def phase_serve(cfg, params):
+    """The serving main path: 16 greedy requests through ServeEngine."""
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    prompts = rg_prompts()
+    log(f"serve: CUTS (traffic only): {RG_REQUESTS} requests, prompt lengths "
+        f"{sorted(p.size for p in prompts)} drawn from {RG_PROMPT_LENS}, "
+        f"{RG_NEW_TOKENS} new tokens each; no width or depth cut")
+    eng = ServeEngine(params, cfg, ServeConfig(slots=RG_SLOTS, max_len=RG_MAX_LEN,
+                                               max_new_tokens=RG_NEW_TOKENS),
+                      planes=1)
+    log(f"serve: slot-pool cache {eng.planes[0].cache_bytes() / 2**20:.1f} MiB "
+        f"({RG_SLOTS} lanes x {RG_MAX_LEN} tokens)")
+    rids, out, groups, steps, wall = serve_timed(eng, prompts)
     statuses = [eng.router.done[r].status for r in rids]
     n_tok = sum(len(out[r]) for r in rids)
     log(f"serve: {len(rids)} requests in {wall:.3f} s: {len(groups)} prefill "
@@ -2233,12 +2276,285 @@ def phase_section55(profile: bool) -> int:
     return launches
 
 
+# ------------------------------------------------- the rest of the LM family
+LM_ARCH = "rwkv6-1.6b"
+LM_SEQ, LM_BATCH, LM_STEPS = 128, 8, 6
+LM_ENTRIES = 196   # 68 windows of 129 tokens: 6 train steps of 8, 7 val, 13 test
+DS_ARCH = "deepseek-v2-lite-16b"
+DS_SLOTS, DS_MAX_LEN, DS_NEW_TOKENS = 8, 1024, 32
+DS_REQUESTS, DS_PROMPT_LENS = 16, (128, 256, 512)  # the traffic cuts
+# One lane's last decode logits (bf16, absorbed MLA over the latent cache)
+# and a bf16 forward over its prompt and generated tokens (decompressed MLA),
+# both dropless, are each measured against a float32 forward: the decode
+# path may be at most this many times as far from it as the bf16 forward is
+# (bf16 rounding through 27 layers, and the expert choices it flips, put
+# both about 0.2-0.5 from the float32 logits at random init, against
+# logits of about 4; a wrong cache would put the decode at the logits'
+# own scale).
+DS_LOGIT_RATIO = 2.0
+LM_SMOKE = ("qwen1.5-4b", "minitron-8b", "granite-34b", "h2o-danube-3-4b",
+            "internvl2-26b", "musicgen-large", "grok-1-314b", "deepseek-v2-lite-16b",
+            "rwkv6-1.6b")
+SMOKE_SEQ, SMOKE_ENTRIES = 16, 33  # 17 windows: 3 train steps of 4, 2 val
+SMOKE_DECODE_ATOL = 1e-4  # f32 prefill + decode vs a teacher-forced forward
+
+
+def phase_lm_train(profile: bool) -> None:
+    """(a) rwkv6-1.6b at full width through the launcher's LM path."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import main as launch
+
+    cfg = get_arch(LM_ARCH).lm
+    torch.cuda.reset_peak_memory_stats()
+    flags = ["--arch", LM_ARCH, "--seq-len", str(LM_SEQ), "--batch", str(LM_BATCH),
+             "--steps", str(LM_STEPS), "--entries", str(LM_ENTRIES), "--log-every", "1",
+             "--seed", str(SEED)]
+    log(f"LM train: {LM_ARCH} at full width ({cfg.layers} layers, d_model "
+        f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, head size "
+        f"{cfg.rwkv_head_size}; {cfg.param_dtype} master weights, {cfg.dtype} "
+        f"compute) through the launcher: {' '.join(flags)}; CUT: a {LM_ENTRIES}-token "
+        f"stream, so one epoch is {LM_STEPS} steps")
+    t0 = time.perf_counter()
+    with StepTimer(keep_last=profile) as timer:
+        state, history = launch(flags)
+    wall = time.perf_counter() - t0
+    steps = [r for r in history if "lr" in r]
+    losses = [r["loss"] for r in steps]
+    final = history[-1]
+    step_ms = statistics.median(timer.ms[1:])
+    peak = torch.cuda.max_memory_allocated()
+    log(f"LM train: {len(steps)} steps in {wall:.1f} s (parameters drawn, data and "
+        f"eval included); loss {', '.join(f'{v:.4f}' for v in losses)}; val_loss "
+        f"{final.get('val_loss')}, val_ppl {final.get('val_ppl')}; train step "
+        f"{step_ms:.1f} ms (median of steps 2..{len(steps)}; all: "
+        f"{', '.join(f'{t:.1f}' for t in timer.ms)}); peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    check(len(steps) == LM_STEPS and all(np.isfinite(losses)),
+          f"LM train: {len(steps)} steps, losses {losses}")
+    check(len(set(losses)) > 1, f"LM train: the loss never changed: {losses}")
+    check(np.isfinite(final.get("val_loss", np.nan))
+          and np.isfinite(final.get("val_ppl", np.nan)),
+          f"LM train: no finite val_loss/val_ppl in the epoch row {final}")
+    if profile:
+        step, batch = timer.last
+        profile_step(f"{LM_ARCH} train step", lambda: step(state, batch))
+    del state, timer
+    torch.cuda.empty_cache()
+
+
+def ds_model():
+    """deepseek-v2-lite-16b at its registered widths, random weights drawn
+    on the card straight into bf16, leaf by leaf, from a seeded generator
+    (the router stays float32, as in the JAX package)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.lm import model as lm
+    from repro_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(get_arch(DS_ARCH).lm, param_dtype="bfloat16")
+    t0 = time.perf_counter()
+    params = lm.init(torch.Generator(device="cuda").manual_seed(SEED), cfg,
+                     device="cuda")
+    torch.cuda.synchronize()
+    leaves = tree_leaves(params)
+    n = sum(t.numel() for t in leaves)
+    m, moe = cfg.mla, cfg.moe
+    log(f"LM serve: {DS_ARCH} at full width: {cfg.layers} layers "
+        f"({[(len(sp), r) for sp, r in lm.stage_plan(cfg)]} stage plan), d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads, MLA kv_lora_rank {m.kv_lora_rank} "
+        f"(rope {m.qk_rope_head_dim}), MoE {moe.n_experts} routed experts top-"
+        f"{moe.top_k} + {moe.n_shared} shared of width {moe.d_expert}, first "
+        f"{moe.first_k_dense} dense (d_ff {moe.dense_d_ff}), vocab {cfg.vocab}: "
+        f"{n:,} parameters, {sum(t.nbytes for t in leaves) / 1e9:.2f} GB "
+        f"(bf16, router f32), drawn in {time.perf_counter() - t0:.1f} s; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB while drawing")
+    return cfg, params
+
+
+def phase_lm_serve(profile: bool) -> None:
+    """(b) deepseek-v2-lite-16b at full width through ServeEngine: 16 greedy
+    requests, every MoE dispatch's dropped assignments counted, and one
+    lane's last decode logits held against a forward over its tokens."""
+    from repro_torch.models.lm import model as lm
+    from repro_torch.models.lm import moe
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params = ds_model()
+    rng = np.random.default_rng(SEED + 5)
+    lens = rng.choice(DS_PROMPT_LENS, size=DS_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab, int(k)).astype(np.int32) for k in lens]
+    log(f"LM serve: CUTS (traffic only): {DS_REQUESTS} requests, prompt lengths "
+        f"{sorted(p.size for p in prompts)} drawn from {DS_PROMPT_LENS}, "
+        f"{DS_NEW_TOKENS} new tokens each; no width or depth cut")
+    eng = ServeEngine(params, cfg, ServeConfig(slots=DS_SLOTS, max_len=DS_MAX_LEN,
+                                               max_new_tokens=DS_NEW_TOKENS),
+                      planes=1, device="cuda")
+    del params  # the engine's compute copy shares the bf16 leaves
+    log(f"LM serve: slot-pool cache {eng.planes[0].cache_bytes() / 2**20:.1f} MiB "
+        f"({DS_SLOTS} lanes x {DS_MAX_LEN} tokens of {cfg.mla.kv_lora_rank} + "
+        f"{cfg.mla.qk_rope_head_dim} latents a layer)")
+
+    drops = {"prefill": [], "decode": []}  # device counts, summed after the run
+    records = []  # (input tokens, lengths, logits) of every decode call
+    dispatch, decode_step = moe._dispatch_indices, lm.decode_step
+
+    def counting(top_ix, n_experts, capacity):
+        slot_src = dispatch(top_ix, n_experts, capacity)
+        kind = "decode" if top_ix.shape[0] == DS_SLOTS else "prefill"
+        drops[kind].append(top_ix.numel() - (slot_src < top_ix.numel()).sum())
+        return slot_src
+
+    def recording(p, c, token, cache, lengths):
+        logits, cache = decode_step(p, c, token, cache, lengths)
+        records.append((token[:, 0].clone(), lengths.clone(), logits))
+        return logits, cache
+
+    moe._dispatch_indices, lm.decode_step = counting, recording
+    try:
+        rids, out, groups, steps, wall = serve_timed(eng, prompts)
+    finally:
+        moe._dispatch_indices, lm.decode_step = dispatch, decode_step
+    statuses = [eng.router.done[r].status for r in rids]
+    n_tok = sum(len(out[r]) for r in rids)
+    dropped = {k: int(sum(int(v) for v in vals)) for k, vals in drops.items()}
+    calls = {k: len(vals) for k, vals in drops.items()}
+    peak = torch.cuda.max_memory_allocated()
+    per_shape = {}
+    for shape, ms in groups:
+        per_shape.setdefault(tuple(shape), []).append(ms)
+    log(f"LM serve: {len(rids)} requests in {wall:.3f} s: {len(groups)} prefill groups "
+        f"{[tuple(g) for g, _ in groups]}, {len(steps)} decode steps, {n_tok} tokens "
+        f"({n_tok / wall:.1f} tokens/s over the run); prefill group ms (host clock to "
+        f"the token pull) {', '.join(f'{s}: {statistics.median(v):.1f}' for s, v in per_shape.items())}; "
+        f"decode step {statistics.median(steps):.2f} ms (median of {len(steps)}); peak "
+        f"device memory {peak / 2**30:.2f} GiB")
+    log(f"LM serve: MoE assignments dropped over capacity: prefill {dropped['prefill']} "
+        f"in {calls['prefill']} dispatches, decode {dropped['decode']} in "
+        f"{calls['decode']} dispatches ({DS_SLOTS} tokens x top-{cfg.moe.top_k} = "
+        f"{DS_SLOTS * cfg.moe.top_k} assignments against a capacity of "
+        f"{moe.capacity_of(DS_SLOTS, cfg.moe)} an expert)")
+    check(statuses == ["ok"] * DS_REQUESTS, f"request statuses {statuses}")
+    check(all(len(out[r]) == DS_NEW_TOKENS for r in rids),
+          f"a request did not get its {DS_NEW_TOKENS} tokens")
+    check(all(0 <= t < cfg.vocab for r in rids for t in out[r]),
+          "a token outside the vocabulary")
+    check(dropped["decode"] == 0, "a decode step dropped MoE assignments")
+
+    # One lane: the decode call that produced its last token fed its
+    # second-to-last token at length len(prompt) + DS_NEW_TOKENS - 2.
+    rid = rids[0]
+    prompt, gen = prompts[0], np.asarray(out[rid])
+    at = prompt.size + DS_NEW_TOKENS - 2
+    served = None
+    for tok, lens, logits in records:
+        lanes = torch.nonzero((lens == at) & (tok == int(gen[-2])))
+        if len(lanes):
+            served = logits[int(lanes[0, 0])].float()
+    check(served is not None, "no decode call fed the lane's second-to-last token")
+    ds_check_lane(eng.planes[0].params, cfg, prompt, gen, served)
+    if profile:
+        profile_step(f"{DS_ARCH} decode step", eng.planes[0].decode)
+    del eng, records
+    torch.cuda.empty_cache()
+
+
+def ds_check_lane(params, cfg, prompt, gen, served) -> None:
+    """The lane's tokens through the cache path and through ``forward``,
+    with a capacity that drops nothing (capacity factor E / k): the served
+    run's prefill groups drop assignments, and which ones depends on the
+    group, so only a dropless pass compares the two paths.  The lane's
+    prompt is prefilled alone and its generated tokens decoded teacher-forced
+    (bf16); the last step's logits and a bf16 forward's over the same tokens
+    are measured against a float32 forward, and the decode may be at most
+    DS_LOGIT_RATIO times as far from it as the bf16 forward.  The served
+    logits' distance from the dropless forward is logged beside them."""
+    from repro_torch.models.lm import model as lm
+
+    moe = cfg.moe
+    nd = dataclasses.replace(cfg, moe=dataclasses.replace(
+        moe, capacity_factor=moe.n_experts / moe.top_k))
+    seq = torch.as_tensor(np.concatenate([prompt, gen[:-1]]), dtype=torch.long,
+                          device="cuda")[None]
+    with torch.no_grad():
+        cache = lm.init_cache(nd, 1, DS_MAX_LEN, device="cuda")
+        logits, cache, lengths = lm.prefill(params, nd, seq[:, :prompt.size], cache)
+        for t in range(prompt.size, seq.shape[1]):
+            logits, cache = lm.decode_step(params, nd, seq[:, t:t + 1], cache, lengths)
+            lengths = lengths + 1
+        decoded = logits[0].float()
+        bf16 = lm.forward(params, nd, seq)[0][0, -1].float()
+        f32 = lm.forward(params, dataclasses.replace(nd, dtype="float32"), seq)[0][0, -1]
+    err_dec = float((decoded - f32).abs().max())
+    err_fwd = float((bf16 - f32).abs().max())
+    log(f"LM serve: one lane (prompt {prompt.size} + {gen.size - 1} generated tokens), "
+        f"dropless (capacity factor {nd.moe.capacity_factor:.3f}): max_abs_diff from "
+        f"the float32 forward: last decode logits {err_dec:.4f}, bf16 forward "
+        f"{err_fwd:.4f} (ratio {err_dec / err_fwd:.3f}, at most {DS_LOGIT_RATIO}; "
+        f"largest logit {float(f32.abs().max()):.3f}); decode against the bf16 "
+        f"forward {float((decoded - bf16).abs().max()):.4f}; argmax decode / bf16 / "
+        f"f32 {int(decoded.argmax())} / {int(bf16.argmax())} / {int(f32.argmax())}; "
+        f"the served logits (prefill groups with drops) against the bf16 forward: "
+        f"{float((served - bf16).abs().max()):.4f}, served token {int(gen[-1])}")
+    check(err_dec <= DS_LOGIT_RATIO * err_fwd,
+          "the lane's decode logits are further from the float32 forward than "
+          f"{DS_LOGIT_RATIO}x the bf16 forward")
+    del cache
+
+
+def phase_lm_smoke() -> None:
+    """(c) every new LM arch at its smoke config, float32, on the card: 3
+    launcher steps, then prefill plus 4 decode steps against a
+    teacher-forced forward."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import main as launch
+    from repro_torch.models.lm import model as lm
+
+    for arch_id in LM_SMOKE:
+        _, history = launch(["--arch", arch_id, "--smoke", "--seq-len", str(SMOKE_SEQ),
+                             "--batch", "4", "--entries", str(SMOKE_ENTRIES),
+                             "--log-every", "1", "--seed", str(SEED)])
+        losses = [r["loss"] for r in history if "lr" in r]
+        cfg = get_arch(arch_id).smoke_config()
+        params = lm.init(torch.Generator(device="cuda").manual_seed(SEED), cfg,
+                         device="cuda")
+        toks = torch.randint(0, cfg.vocab, (2, 12), device="cuda",
+                             generator=torch.Generator(device="cuda").manual_seed(SEED))
+        errs = []
+        with torch.no_grad():
+            full, _ = lm.forward(params, cfg, toks)
+            cache = lm.init_cache(cfg, 2, 16, device="cuda")
+            logits, cache, lengths = lm.prefill(params, cfg, toks[:, :8], cache)
+            errs.append(float((logits - full[:, 7]).abs().max()))
+            for t in range(8, 12):
+                logits, cache = lm.decode_step(params, cfg, toks[:, t:t + 1], cache,
+                                               lengths)
+                lengths = lengths + 1
+                errs.append(float((logits - full[:, t]).abs().max()))
+        log(f"LM smoke: {arch_id}: {len(losses)} launcher steps, loss "
+            f"{', '.join(f'{v:.4f}' for v in losses)}; prefill + 4 decode steps vs "
+            f"a teacher-forced forward: max_abs_diff {max(errs):.2e} (atol "
+            f"{SMOKE_DECODE_ATOL})")
+        check(len(losses) == 3 and all(np.isfinite(losses)),
+              f"{arch_id}: launcher losses {losses}")
+        check(max(errs) <= SMOKE_DECODE_ATOL, f"{arch_id}: decode disagrees with "
+                                              f"the teacher-forced forward")
+
+
+def phase_lm(profile: bool) -> None:
+    t0 = time.perf_counter()
+    phase_lm_train(profile)
+    phase_lm_serve(profile)
+    phase_lm_smoke()
+    log(f"LM family: phase wall {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
                         help="add a torch.profiler breakdown of one train "
                              "step, one forecast batch and one decode step, "
-                             "and of the section 5.5 models' train steps")
+                             "of the section 5.5 models' train steps and of "
+                             "the LM family's train and decode steps")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA card",
@@ -2357,6 +2673,17 @@ def main() -> int:
     # The section 5.5 models: window_gather's count from 0 before A3T-GCN's
     # two arms and ST-LLM, read after; the count joins the kernel's launches.
     kernels[0]["launches"] += phase_section55(args.profile)
+
+    # The rest of the LM family: counts from 0 just before, read just after;
+    # this path runs none of the four kernels (the lm gather is an indexed
+    # slice, and no LM arch trains through a kernel or calls flash).
+    counters = (window_gather, hop_project, linear_scan, flash_attention)
+    for kernel in counters:
+        kernel.launches = 0
+    phase_lm(args.profile)
+    lm_launches = {k.__name__: k.launches for k in counters}
+    log(f"LM family path launches: {lm_launches} (0 expected: no kernel on this path)")
+    check(not any(lm_launches.values()), "a kernel launched on the LM family path")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,39 +1,40 @@
-"""Architecture registry of the port: ``get_arch(<id>)``.
-
-Only the archs whose every module is ported are registered.  Asking for an
-arch of the JAX package that is not ported yet raises and names the
-``ROADMAP.md`` item that ports it.
-"""
+"""Architecture registry of the port: ``get_arch(<id>)``, every arch of the
+JAX package's registry with the same configs."""
 from __future__ import annotations
 
-from repro_torch.configs.base import ArchSpec, ShapeCell
+from repro_torch.configs.base import LM_SHAPES, ArchSpec, ShapeCell
+from repro_torch.configs.deepseek_v2_lite_16b import ARCH as DEEPSEEK_V2_LITE
+from repro_torch.configs.granite_34b import ARCH as GRANITE_34B
+from repro_torch.configs.grok1_314b import ARCH as GROK1_314B
+from repro_torch.configs.h2o_danube3_4b import ARCH as H2O_DANUBE3_4B
+from repro_torch.configs.internvl2_26b import ARCH as INTERNVL2_26B
+from repro_torch.configs.minitron_8b import ARCH as MINITRON_8B
+from repro_torch.configs.musicgen_large import ARCH as MUSICGEN_LARGE
+from repro_torch.configs.qwen15_4b import ARCH as QWEN15_4B
 from repro_torch.configs.recurrentgemma_2b import ARCH as RECURRENTGEMMA_2B
+from repro_torch.configs.rwkv6_1b6 import ARCH as RWKV6_1B6
 from repro_torch.configs.stgnn import DCRNN_PEMS, PGT_DCRNN_PEMS_ALL_LA
 
-ARCHS: dict[str, ArchSpec] = {
-    a.id: a for a in (RECURRENTGEMMA_2B, DCRNN_PEMS, PGT_DCRNN_PEMS_ALL_LA)}
-
-#: archs of the JAX package that the port does not have yet, and where
-#: ``ROADMAP.md`` queues them
-NOT_PORTED = {
-    **dict.fromkeys(
-        ("qwen1.5-4b", "minitron-8b", "granite-34b", "h2o-danube-3-4b",
-         "internvl2-26b", "musicgen-large"),
-        "queue 1, item 6 (the rest of the LM family)"),
-    **dict.fromkeys(("grok-1-314b", "deepseek-v2-lite-16b"),
-                    "queue 1, item 6 (the rest of the LM family: MoE and MLA)"),
-    "rwkv6-1.6b": "queue 1, item 6 (the rest of the LM family: RWKV-6)",
+LM_ARCHS: dict[str, ArchSpec] = {
+    a.id: a
+    for a in (
+        QWEN15_4B, MINITRON_8B, GRANITE_34B, H2O_DANUBE3_4B, INTERNVL2_26B,
+        GROK1_314B, DEEPSEEK_V2_LITE, MUSICGEN_LARGE, RECURRENTGEMMA_2B,
+        RWKV6_1B6,
+    )
 }
+
+STGNN_ARCHS = {a.id: a for a in (DCRNN_PEMS, PGT_DCRNN_PEMS_ALL_LA)}
+
+ARCHS: dict[str, ArchSpec] = {**LM_ARCHS, **STGNN_ARCHS}
 
 
 def get_arch(arch_id: str) -> ArchSpec:
-    if arch_id in ARCHS:
+    try:
         return ARCHS[arch_id]
-    if arch_id in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported yet: ROADMAP.md "
-            f"{NOT_PORTED[arch_id]}")
-    raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCHS)}")
+    except KeyError:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCHS)}") from None
 
 
-__all__ = ["ARCHS", "NOT_PORTED", "get_arch", "ArchSpec", "ShapeCell"]
+__all__ = ["ARCHS", "LM_ARCHS", "STGNN_ARCHS", "get_arch", "ArchSpec",
+           "ShapeCell", "LM_SHAPES"]

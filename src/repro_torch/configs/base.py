@@ -2,9 +2,10 @@
 package.
 
 Every architecture is one ``ArchSpec`` selectable by ``--arch <id>`` in the
-launcher.  ``shapes`` lists its (arch × shape) cells; ``smoke_config`` is
-the reduced same-family config the CPU tests run.  The JAX package's
-``LM_SHAPES`` and long-context skips arrive with the LM launchers.
+launcher.  ``shapes`` lists its (arch × shape) cells; ``skips`` documents
+the cells the assignment spec skips (long_500k for pure full-attention
+archs); ``smoke_config`` is the reduced same-family config the CPU tests
+run.
 """
 from __future__ import annotations
 
@@ -24,16 +25,35 @@ class ShapeCell:
     global_batch: int
 
 
+LM_SHAPES = (
+    ShapeCell("train_4k", "train", 4_096, 256),
+    ShapeCell("prefill_32k", "prefill", 32_768, 32),
+    ShapeCell("decode_32k", "decode", 32_768, 128),
+    ShapeCell("long_500k", "decode", 524_288, 1),
+)
+
+_FULL_ATTN_SKIP = ("long_500k is long-context decode over a 524,288-token KV "
+                   "cache; this arch is pure full attention (no sub-quadratic "
+                   "path), skipped per assignment spec")
+
+
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     id: str
     family: str  # dense | moe | vlm | audio | hybrid | ssm | stgnn
     lm: LMConfig | None  # None for the ST-GNN family
-    shapes: tuple[ShapeCell, ...] = ()
+    shapes: tuple[ShapeCell, ...] = LM_SHAPES
+    skips: dict[str, str] = dataclasses.field(default_factory=dict)
     source: str = ""
     notes: str = ""
     # reduced same-family config for CPU smoke tests
     smoke_overrides: dict = dataclasses.field(default_factory=dict)
+
+    def cells(self, include_skipped: bool = False):
+        for s in self.shapes:
+            if s.name in self.skips and not include_skipped:
+                continue
+            yield s
 
     def smoke_config(self) -> LMConfig:
         if self.lm is None:
@@ -44,3 +64,7 @@ class ArchSpec:
         )
         base.update(self.smoke_overrides)
         return dataclasses.replace(self.lm, **base)
+
+
+def full_attn_skips() -> dict[str, str]:
+    return {"long_500k": _FULL_ATTN_SKIP}

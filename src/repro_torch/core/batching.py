@@ -79,3 +79,17 @@ def gather_batch_fused(
 
     return gather_xy(series, starts, input_len=input_len, horizon=horizon,
                      use_pallas=use_pallas)
+
+
+def gather_x_batch(series: torch.Tensor, starts: torch.Tensor, *, length: int) -> torch.Tensor:
+    """x-only gather (serving path / LM next-token windows where y = shift(x))."""
+    return _windows(series, starts, length)
+
+
+def lm_window_batch(
+    stream: torch.Tensor, starts: torch.Tensor, *, seq_len: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Index-batching applied to an LM token stream (the nodes==1 case):
+    inputs = stream[s : s+seq], labels = stream[s+1 : s+seq+1]."""
+    w = _windows(stream, starts, seq_len + 1)
+    return w[:, :-1], w[:, 1:]

@@ -117,6 +117,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"need {smem_bytes(bq, bk, d, q.dtype)} bytes of shared "
                          f"memory (at most {MAX_SMEM}); {q.dtype} tiles must be "
                          f"{shape}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention has no backward kernel; differentiate the plain "
+            "version (use_pallas=False)")
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     if out.numel() == 0:
         return out

@@ -6,7 +6,10 @@ kernel on a CUDA tensor, or its plain version on a CPU tensor.  The kernel
 reads and writes the model layout through strides and masks ragged tiles
 itself, so nothing is transposed in memory or padded.  ``impl`` overrides
 ``use_pallas``: ``"ref"``/``"pallas"`` force a lowering, ``"auto"`` routes
-through the measured dispatcher (:mod:`repro_torch.kernels.autotune`).
+through the measured dispatcher (:mod:`repro_torch.kernels.autotune`).  The
+kernel path is forward-only, as in the JAX package, whose Pallas kernel has
+no gradient either: asking it for a gradient raises, on the CPU as on the
+card.
 """
 from __future__ import annotations
 
@@ -36,6 +39,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     if not use_pallas:
         return flash_attention_ref(qt, kt, vt, causal=causal).transpose(1, 2)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention(use_pallas=True) has no backward: the CUDA kernel "
+            "is forward-only, as the JAX package's Pallas kernel is; "
+            "differentiate the plain version (use_pallas=False)")
     if q.shape[1] != k.shape[1]:
         raise ValueError(f"flash_attention(use_pallas=True) takes equal query "
                          f"and key lengths, got {q.shape[1]} and {k.shape[1]}")

@@ -71,6 +71,11 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None = None
         raise ValueError(f"linear_scan: h0 must be a contiguous [{bsz}, {d}] "
                          f"float32 or bfloat16 tensor on {a.device}, got "
                          f"{h0.dtype} {tuple(h0.shape)} on {h0.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (a, b, h0)):
+        raise NotImplementedError(
+            "linear_scan has no backward kernel; differentiate the plain "
+            "version (use_pallas=False)")
     h_dtype = a.dtype if h0 is None else h0.dtype
     h_seq = torch.empty_like(a)
     h_last = torch.empty((bsz, d), dtype=h_dtype, device=a.device)

@@ -5,7 +5,9 @@ scan on a CUDA tensor, or its plain version on a CPU tensor.  The kernel
 loops to S exactly, so nothing is padded, and the JAX op's tiling knobs
 (``chunk``, ``backend``) have no counterpart.  ``impl`` overrides ``use_pallas``:
 ``"ref"``/``"pallas"`` force a lowering, ``"auto"`` routes through the
-measured dispatcher (:mod:`repro_torch.kernels.autotune`).
+measured dispatcher (:mod:`repro_torch.kernels.autotune`).  The kernel path
+is forward-only, as in the JAX package, whose Pallas scan has no gradient
+either: asking it for a gradient raises, on the CPU as on the card.
 """
 from __future__ import annotations
 
@@ -32,4 +34,10 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None = None
         use_pallas = impl == "pallas"
     if not use_pallas:
         return linear_scan_ref(a, b, h0)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (a, b, h0)):
+        raise NotImplementedError(
+            "linear_scan(use_pallas=True) has no backward: the CUDA scan is "
+            "forward-only, as the JAX package's Pallas scan is; train with "
+            "use_pallas=False (LMConfig.use_pallas_scan=False)")
     return _linear_scan_kernel(a, b, h0)

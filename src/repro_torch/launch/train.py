@@ -12,8 +12,16 @@ a crash-durable JSONL history (``--history-out``: one fsynced row per line,
 duplicates of a resumed epoch tail dropped); and the feed prefetcher
 (``--prefetch-depth``, ``--staleness``, ``--prefetch-chunk``).
 
-It runs the ST-GNN archs (``dcrnn-pems``, ``pgt-dcrnn-pems-all-la``) on
-``--device`` (``cuda`` unless the caller asks for ``cpu``; no fallback).
+It runs every arch of the registry on ``--device`` (``cuda`` unless the
+caller asks for ``cpu``; no fallback): the ST-GNN archs (``dcrnn-pems``,
+``pgt-dcrnn-pems-all-la``) on a synthetic traffic series and sensor graph,
+and the ten LM archs (``--smoke`` for the reduced same-family config) on a
+synthetic int32 token stream of ``--entries`` tokens, windows of
+``--seq-len`` tokens through the pipeline's ``lm`` gather (labels are the
+inputs shifted by one).  ``--shuffle global`` draws global batches over the
+whole stream (``REPLICATED``), ``local-batch`` the fixed count-split
+partitions over time shards (``PARTITIONED``); each epoch ends with
+``val_loss`` and ``val_ppl`` (the perplexity, ``exp(min(val_loss, 30))``).
 With ``--init-distributed`` it joins the process group that the environment
 describes (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``,
 ``MASTER_ADDR``, ``MASTER_PORT``, as ``torch.distributed.run`` sets them):
@@ -52,8 +60,7 @@ with it.  The elastic path's process group times out a collective after
 ``max(5 × --heartbeat-timeout, 60)`` seconds (torch's default is 30
 minutes).
 
-The LM archs and ``--smoke`` raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item.  Two differences from the JAX launcher:
+Two differences from the JAX launcher:
 ``--tuning-dir`` defaults to the port's own cache directory
 (``build/tuning``, never ``results/``), and ``--log-every`` sets the
 history's step-row cadence (the JAX launcher fixes it at 10, the default
@@ -71,6 +78,8 @@ Examples:
   python -m repro_torch.launch.train --arch dcrnn-pems --nodes 9 \\
       --entries 120 --batch 4 --device cpu --elastic --ckpt-dir /tmp/ck \\
       --heartbeat file:/tmp/hb
+  python -m repro_torch.launch.train --arch rwkv6-1.6b --smoke --device cpu \\
+      --entries 3000 --seq-len 32 --batch 8 --history-out /tmp/lm.jsonl
 """
 from __future__ import annotations
 
@@ -86,26 +95,22 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_arch
-from repro_torch.core import Placement, WindowSpec
+from repro_torch.core import IndexDataset, Placement, WindowSpec
 from repro_torch.core.distributed import dp_size, init_from_env, process_info
-from repro_torch.data import (gaussian_adjacency, make_traffic_series,
-                              random_sensor_coords, transition_matrices)
+from repro_torch.data import (gaussian_adjacency, make_token_stream,
+                              make_traffic_series, random_sensor_coords,
+                              transition_matrices)
 from repro_torch.device import resolve_device
 from repro_torch.distributed import (LeaderHistorySink, LeaderTracker,
                                      checkpoint_meta, latest_step, make_transport)
 from repro_torch.distributed.transport import tcp_addresses
 from repro_torch.kernels.autotune import DEFAULT_CACHE_DIR, autotuning
 from repro_torch.models import dcrnn, pgt_dcrnn
+from repro_torch.models.lm import model as lm
 from repro_torch.optim import AdamConfig, warmup_cosine
 from repro_torch.pipeline import ElasticConfig, PipelineConfig, build_pipeline
 from repro_torch.train.loop import RestartSignal, TrainLoopConfig
-
-_LM = "ROADMAP.md queue 1, item 6 (the rest of the LM family and LM training)"
-
-#: flags of later slices: (argparse dest, its default, where it is queued)
-_LATER = (
-    ("smoke", False, _LM),
-)
+from repro_torch.tree import tree_leaves
 
 #: Exit code for "re-mesh requested" in relaunch mode (EX_TEMPFAIL: the run
 #: is not broken, it wants to be relaunched into the planned world).
@@ -145,19 +150,72 @@ def _train_stgnn(arch, args, adam, sched, loop: TrainLoopConfig, sink):
     def loss_fn(p, x, y):
         return mod.loss_fn(p, mcfg, supports, x, y), {}
 
-    # --batch is the GLOBAL batch; the pipeline takes a per-rank size
-    dp = dp_size()
-    if args.batch % dp:
-        raise SystemExit(f"--batch {args.batch} not divisible by "
-                         f"data-parallel size {dp}")
     pipe = build_pipeline(
         series, spec, loss_fn, params,
-        PipelineConfig(batch_per_rank=args.batch // dp,
+        PipelineConfig(batch_per_rank=_batch_per_rank(args),
                        placement=Placement(args.placement), gather=args.gather,
                        halo=not args.no_halo, seed=args.seed, adam=adam,
                        schedule=sched, loop=loop, device=args.device),
         elastic=_elastic_config(args))
     del series  # only the resident rows stay, on the device
+    return _fit(pipe, args, loop, sink)
+
+
+def _train_lm(arch, args, adam, sched, loop: TrainLoopConfig, sink):
+    """Token-stream windows (the nodes==1 case) through the same pipeline:
+    the ``lm`` gather builds (tokens, shifted labels) on the device."""
+    cfg = arch.smoke_config() if args.smoke else arch.lm
+    stream = make_token_stream(args.entries, cfg.vocab, seed=args.seed)
+    spec = WindowSpec(horizon=1, input_len=args.seq_len)
+    ds = IndexDataset.from_raw(stream, spec, scale_feature=None)
+    ds = dataclasses.replace(ds, series=stream)  # tokens: no standardisation
+    t0 = time.perf_counter()
+    params = lm.init(torch.Generator().manual_seed(args.seed), cfg, device=args.device)
+    n = sum(t.numel() for t in tree_leaves(params))
+    print(f"model: {arch.id}{' (smoke config)' if args.smoke else ''}, "
+          f"{cfg.layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab}, "
+          f"{n:,} parameters ({cfg.param_dtype}; compute {cfg.dtype}) drawn in "
+          f"{time.perf_counter() - t0:.1f} s; stream of {args.entries:,} tokens, "
+          f"windows of {args.seq_len}", flush=True)
+
+    def loss_fn(p, toks, labels):
+        return lm.loss_fn(p, cfg, toks, labels)
+
+    # --shuffle selects the sampler through the placement: global draws over
+    # the replicated stream, or the fixed count-split partitions (local batch
+    # shuffling) over a time-sharded stream.
+    placement = (Placement.REPLICATED if args.shuffle == "global"
+                 else Placement.PARTITIONED)
+    pipe = build_pipeline(
+        stream, spec, loss_fn, params,
+        PipelineConfig(batch_per_rank=_batch_per_rank(args), placement=placement,
+                       partition="count", gather="lm", seed=args.seed,
+                       adam=adam, schedule=sched, loop=loop, device=args.device),
+        dataset=ds, elastic=_elastic_config(args))
+
+    # Held-out evaluation through the same eval feeds as the ST-GNN path: the
+    # mean token cross-entropy of the val split and its perplexity.
+    eval_fn = None
+    if len(ds.val_windows) > 0:
+        def eval_fn(st):
+            val_loss = pipe.evaluate(st["params"], split="val")
+            return {"val_loss": val_loss,
+                    "val_ppl": float(np.exp(np.minimum(val_loss, 30.0)))}
+    return _fit(pipe, args, loop, sink, eval_fn=eval_fn)
+
+
+def _batch_per_rank(args) -> int:
+    """--batch is the GLOBAL batch; the pipeline takes a per-rank size."""
+    dp = dp_size()
+    if args.batch % dp:
+        raise SystemExit(f"--batch {args.batch} not divisible by "
+                         f"data-parallel size {dp}")
+    return args.batch // dp
+
+
+def _fit(pipe, args, loop: TrainLoopConfig, sink, eval_fn="auto"):
+    """Report the placement, wire the heartbeat, fit; a failed collective
+    under a process group goes to leader succession."""
     d = pipe.describe()
     print(f"placement {d['placement'].value}: rank rows {d['resident_rows']} "
           f"({d['resident_bytes']:,} bytes) on {d['device']}, "
@@ -168,7 +226,7 @@ def _train_stgnn(arch, args, adam, sched, loop: TrainLoopConfig, sink):
             print(f"resuming from step {step}", flush=True)
     transport = _wire_heartbeat(pipe, args, sink)
     try:
-        return pipe.fit(resume=args.resume, history_sink=sink)
+        return pipe.fit(resume=args.resume, eval_fn=eval_fn, history_sink=sink)
     except RuntimeError as err:  # what a collective raises when a peer is gone
         if transport is not None and pipe.dataplane.processes > 1:
             _succeed(pipe, transport, args, sink, err)  # exits 75 if a peer went silent
@@ -388,10 +446,6 @@ def main(argv: list[str] | None = None):
     """Parse ``argv`` (default ``sys.argv[1:]``), train, print the closing
     line; returns ``(state, history)``."""
     args = _parser().parse_args(argv)
-    for dest, default, item in _LATER:
-        if getattr(args, dest) != default:
-            flag = "--" + dest.replace("_", "-")
-            raise NotImplementedError(f"{flag} is not ported yet: {item}")
     if args.heartbeat and not args.elastic:
         # Ignoring the transport would leave the operator believing health
         # monitoring is on when nothing emits or collects beats.
@@ -409,9 +463,6 @@ def main(argv: list[str] | None = None):
               "relaunching controller should pass the original fleet size", flush=True)
     resolve_device(args.device)
     arch = get_arch(args.arch)
-    if arch.family != "stgnn":
-        raise NotImplementedError(
-            f"training the LM arch {arch.id!r} is not ported yet: {_LM}")
     if args.init_distributed:
         device, backend = init_from_env(
             args.device, timeout=_group_timeout(args) if args.elastic else None)
@@ -450,7 +501,8 @@ def _run(arch, args):
             if args.history_out else [])
     try:
         with autotuning(mode=args.autotune, cache_dir=args.tuning_dir):
-            state, history = _train_stgnn(arch, args, adam, sched, loop, sink)
+            train = _train_stgnn if arch.family == "stgnn" else _train_lm
+            state, history = train(arch, args, adam, sched, loop, sink)
     except RestartSignal as sig:
         # relaunch mode: the state is checkpointed with its (epoch,
         # done_in_epoch) coordinates; the leader hands the plan to the external launcher

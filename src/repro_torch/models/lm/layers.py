@@ -24,7 +24,7 @@ def rms_norm(x, gain, eps: float = 1e-6):
 def init_linear(draw: Draw, d_in, d_out, *, bias=False, dtype=torch.float32,
                 scale=None, lead: tuple = ()):
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    p = {"w": (draw(lead + (d_in, d_out)) * scale).to(dtype)}
+    p = {"w": draw(lead + (d_in, d_out)).mul_(scale).to(dtype)}
     if bias:
         p["b"] = torch.zeros(lead + (d_out,), dtype=dtype, device=p["w"].device)
     return p

@@ -5,16 +5,18 @@ and each stage's parameters stack over a leading ``repeats`` dim, exactly as
 the JAX package lays them out; its ``lax.scan`` over repeats is a Python
 loop here that indexes the stacked parameters and caches.
 
-Block spec = (mixer, ffn).  This slice ports mixer ∈ full | swa | rec with
-the dense ffn: recurrentgemma = [("rec","dense"),("rec","dense"),
-("swa","dense")]×8 + 2 rec.  MLA, MoE and RWKV raise ``NotImplementedError``
-naming their ``ROADMAP.md`` item; paged caches wait for the paged plane.
+Block spec = (mixer, ffn):
+    mixer ∈ full | swa | mla | rec | rwkv      ffn ∈ dense | moe | rwkv
+Examples: grok = ("full","moe")×64; deepseek = ("mla","dense") + ("mla","moe")×26;
+recurrentgemma = [("rec","dense"),("rec","dense"),("swa","dense")]×8 + 2 rec.
+Paged caches wait for the paged plane.
 
 Caches are updated in place: where the JAX functions return a new cache
 pytree, these write the one they are given (it is also returned), so a
 decode step allocates no second copy of the pool.  Train mode (``forward``,
 ``backbone``) has no cache and writes nothing in place, so autograd runs
-through it; ST-LLM trains its node tokens through ``backbone``.
+through it; ``loss_fn`` trains the LM archs and ST-LLM trains its node
+tokens through ``backbone``.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
-from repro_torch.models.lm import rglru
+from repro_torch.models.lm import rglru, rwkv6
 from repro_torch.models.lm.attention import (
     NEG_INF,
     banded_attention,
@@ -37,15 +39,16 @@ from repro_torch.models.lm.attention import (
 from repro_torch.models.lm.config import LMConfig
 from repro_torch.models.lm.layers import (apply_rope, init_linear, init_mlp,
                                           linear, mlp, rms_norm)
+from repro_torch.models.lm.mla import init_mla, mla_attention, mla_decode
+from repro_torch.models.lm.moe import init_moe, moe_ffn
 from repro_torch.tree import tree_map
 
 BLOCKWISE_THRESHOLD = 2048  # switch to flash-style attention above this seq len
 
-_LATER = {
-    "mla": "MLA is not ported yet (ROADMAP.md queue 1, item 6)",
-    "moe": "MoE is not ported yet (ROADMAP.md queue 1, item 6)",
-    "rwkv": "RWKV-6 is not ported yet (ROADMAP.md queue 1, item 6)",
-}
+#: leaves the layers read in float32 whatever the compute dtype (RG-LRU's
+#: ``lam``, the MoE router, RWKV's ``w0`` and ``u``); ``compute_copy``
+#: leaves them as they are
+_F32_LEAVES = ("lam", "router", "w0", "u")
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -91,12 +94,6 @@ def stage_plan(cfg: LMConfig) -> list[tuple[tuple[LayerSpec, ...], int]]:
     return plan
 
 
-def _check_ported(spec: LayerSpec) -> None:
-    for part in (spec.mixer, spec.ffn):
-        if part in _LATER:
-            raise NotImplementedError(_LATER[part])
-
-
 # ----------------------------------------------------------------------- init
 def _init_attn(draw, cfg: LMConfig, dtype, lead):
     hd = cfg.hd
@@ -112,17 +109,27 @@ def _init_attn(draw, cfg: LMConfig, dtype, lead):
 
 
 def _init_layer(draw, cfg: LMConfig, spec: LayerSpec, dtype, lead, device):
-    _check_ported(spec)
     ones = torch.ones(lead + (cfg.d_model,), dtype=dtype, device=device)
     p: dict[str, Any] = {"norm1": ones}
     if spec.mixer in ("full", "swa"):
         p["attn"] = _init_attn(draw, cfg, dtype, lead)
+    elif spec.mixer == "mla":
+        p["attn"] = init_mla(draw, cfg, dtype, lead)
     elif spec.mixer == "rec":
         p["rec"] = rglru.init_rglru_block(draw, cfg, dtype, lead)
+    elif spec.mixer == "rwkv":
+        p["rwkv"] = rwkv6.init_rwkv_block(draw, cfg, dtype, lead)
     else:
         raise ValueError(spec.mixer)
     p["norm2"] = ones.clone()
-    p["mlp"] = init_mlp(draw, cfg.d_model, cfg.d_ff, cfg.mlp, dtype=dtype, lead=lead)
+    if spec.ffn == "dense":
+        d_ff = cfg.d_ff
+        if cfg.moe is not None and cfg.moe.dense_d_ff is not None:
+            d_ff = cfg.moe.dense_d_ff
+        p["mlp"] = init_mlp(draw, cfg.d_model, d_ff, cfg.mlp, dtype=dtype, lead=lead)
+    elif spec.ffn == "moe":
+        p["moe"] = init_moe(draw, cfg.d_model, cfg.moe, cfg.d_ff, cfg.mlp,
+                            dtype=dtype, lead=lead)
     return p
 
 
@@ -163,19 +170,20 @@ def compute_copy(params, cfg: LMConfig, device: str | torch.device = "cuda"):
     The layers cast each weight to the activation dtype at every call, as the
     JAX package does; a tree already in that dtype makes those casts no-ops
     with the same values, and halves the bytes a bf16 decode step reads.  The
-    RG-LRU's ``lam`` stays float32: the gates read it in float32.  Leaves
+    leaves the layers read in float32 (``_F32_LEAVES``: the RG-LRU's ``lam``,
+    the MoE router, RWKV's ``w0`` and ``u``) keep their dtype.  Leaves
     already in place are shared, not copied, so serving planes handed one
     compute copy share one set of weight tensors.
     """
     dev = resolve_device(device)
     cdtype = _dtype(cfg.dtype)
 
-    def walk(node, key=None):
+    def walk(node, keep=False):
         if isinstance(node, dict):
-            return {k: walk(v, k) for k, v in node.items()}
+            return {k: walk(v, keep or k in _F32_LEAVES) for k, v in node.items()}
         if isinstance(node, list):
-            return [walk(v, key) for v in node]
-        return node.to(device=dev, dtype=node.dtype if key == "lam" else cdtype)
+            return [walk(v, keep) for v in node]
+        return node.to(device=dev, dtype=node.dtype if keep else cdtype)
 
     return walk(params)
 
@@ -188,6 +196,19 @@ def _attn_mixer(p, cfg: LMConfig, spec: LayerSpec, x, positions, *, mode,
     b, s, _ = x.shape
     hd = cfg.hd
     window = cfg.window if spec.mixer == "swa" else None
+
+    if spec.mixer == "mla":
+        if mode == "decode":
+            y, ckv, kpe = mla_decode(p["attn"], cfg, x, cache["ckv"], cache["kpe"],
+                                     lengths)
+            return y, {"ckv": ckv, "kpe": kpe}
+        y, (c_kv, k_pe) = mla_attention(p["attn"], cfg, x, positions,
+                                        blockwise=s > BLOCKWISE_THRESHOLD)
+        if mode != "prefill":
+            return y, None
+        cache["ckv"][:, :s] = c_kv.to(cache["ckv"].dtype)
+        cache["kpe"][:, :s] = k_pe.to(cache["kpe"].dtype)
+        return y, cache
 
     a = p["attn"]
     q = linear(a["wq"], x).reshape(b, s, cfg.n_heads, hd)
@@ -253,19 +274,29 @@ def _ring_decode(q1, k_ring, v_ring, n_valid):
 # --------------------------------------------------------------------- layers
 def _layer_apply(p, cfg: LMConfig, spec: LayerSpec, x, positions, *, mode,
                  cache=None, lengths=None):
-    """One block.  Returns (x, new_cache)."""
-    _check_ported(spec)
+    """One block.  Returns (x, new_cache, aux_loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, p["norm1"].to(x.dtype), cfg.norm_eps)
     if spec.mixer == "rec":
         out, new_cache = rglru.rglru_block(p["rec"], cfg, h,
                                            cache=None if mode == "train" else cache)
+    elif spec.mixer == "rwkv":
+        out, new_cache = rwkv6.time_mix(p["rwkv"], cfg, h,
+                                        cache=None if mode == "train" else cache["tm"])
     else:
         out, new_cache = _attn_mixer(p, cfg, spec, h, positions, mode=mode,
                                      cache=cache, lengths=lengths)
     x = x + out
     h2 = rms_norm(x, p["norm2"].to(x.dtype), cfg.norm_eps)
-    x = x + mlp(p["mlp"], h2, cfg.mlp)
-    return x, new_cache
+    if spec.ffn == "rwkv":
+        out2, cm_cache = rwkv6.channel_mix(p["rwkv"], cfg, h2,
+                                           cache=None if mode == "train" else cache["cm"])
+        new_cache = None if mode == "train" else {"tm": new_cache, "cm": cm_cache}
+    elif spec.ffn == "moe":
+        out2, aux = moe_ffn(p["moe"], h2, cfg.moe, cfg.mlp)
+    else:
+        out2 = mlp(p["mlp"], h2, cfg.mlp)
+    return x + out2, new_cache, aux
 
 
 def _write(dst: torch.Tensor, src: torch.Tensor) -> None:
@@ -276,13 +307,15 @@ def _write(dst: torch.Tensor, src: torch.Tensor) -> None:
 def _run_stages(params, cfg: LMConfig, x, positions, *, mode, caches=None,
                 lengths=None, remat=False):
     """Each stage's repeats in order; a layer's new cache is written into its
-    slice of the stacked cache.  Returns (x, caches).
+    slice of the stacked cache.  Returns (x, caches, aux_total): the sum of
+    the layers' auxiliary losses (the MoE load-balancing terms), float32.
 
     ``remat`` (train mode only: no caches): each repeat's layers run under
     ``torch.utils.checkpoint``, as the JAX package wraps its scan body in
     ``jax.checkpoint``, so the backward pass recomputes their activations.
     """
     plan = stage_plan(cfg)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for (specs, repeats), stage_p, stage_c in zip(
             plan, params["stages"], caches or [None] * len(plan)):
         for r in range(repeats):
@@ -290,28 +323,34 @@ def _run_stages(params, cfg: LMConfig, x, positions, *, mode, caches=None,
             lc = None if stage_c is None else tree_map(lambda t: t[r], stage_c)
 
             def body(x, lp=lp, lc=lc, specs=specs):
+                aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
                 for i, sp in enumerate(specs):
                     sub_c = None if lc is None else lc[f"sub{i}"]
-                    x, nc = _layer_apply(lp[f"sub{i}"], cfg, sp, x, positions,
-                                         mode=mode, cache=sub_c, lengths=lengths)
+                    x, nc, aux = _layer_apply(lp[f"sub{i}"], cfg, sp, x, positions,
+                                              mode=mode, cache=sub_c, lengths=lengths)
                     if sub_c is not None:
                         tree_map(_write, sub_c, nc)
-                return x
+                    aux_sum = aux_sum + aux
+                return x, aux_sum
 
-            x = (checkpoint(body, x, use_reentrant=False)
-                 if remat and torch.is_grad_enabled() else body(x))
-    return x, caches
+            x, aux = (checkpoint(body, x, use_reentrant=False)
+                      if remat and torch.is_grad_enabled() else body(x))
+            aux_total = aux_total + aux
+    return x, caches, aux_total
 
 
 # ----------------------------------------------------------------- public API
-def embed_tokens(params, cfg: LMConfig, tokens, *, pos_offset=None):
-    """tokens: [B, S] int -> (x [B, S, d] in compute dtype, positions).
+def embed_tokens(params, cfg: LMConfig, tokens, *, prefix_embeds=None,
+                 pos_offset=None):
+    """tokens: [B, S] int -> (x [B, S(+P), d] in compute dtype, positions).
 
-    The JAX package's ``prefix_embeds`` (patch/frame frontends) waits for
-    the archs that use it.
+    ``prefix_embeds`` [B, P, d] (the patch/frame frontends' precomputed
+    embeddings) are prepended to the token embeddings.
     """
     cdtype = _dtype(cfg.dtype)
     x = params["embed"][tokens].to(cdtype)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(cdtype), x], dim=1)
     b, s, _ = x.shape
     steps = torch.arange(s, device=x.device)[None]
     if pos_offset is None:
@@ -334,30 +373,42 @@ def logits_fn(params, cfg: LMConfig, x):
     return logits
 
 
-def forward(params, cfg: LMConfig, tokens):
-    """Forward over whole sequences: logits [B, S, V] (the JAX version's
-    first output; its second, the MoE auxiliary loss, waits for MoE)."""
-    x, positions = embed_tokens(params, cfg, tokens)
-    x, _ = _run_stages(params, cfg, x, positions, mode="train")
+def forward(params, cfg: LMConfig, tokens, *, prefix_embeds=None):
+    """Training forward.  Returns (logits [B, S(+P), V], aux_loss)."""
+    x, positions = embed_tokens(params, cfg, tokens, prefix_embeds=prefix_embeds)
+    x, _, aux = _run_stages(params, cfg, x, positions, mode="train")
     x = rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
-    return logits_fn(params, cfg, x)
+    return logits_fn(params, cfg, x), aux
 
 
 def backbone(params, cfg: LMConfig, x_embeds, *, remat=False):
     """Run the block stack on precomputed embeddings (ST-LLM's node tokens).
     x_embeds: [B, S, d] -> (hidden [B, S, d], aux).
 
-    Runs where ``x_embeds`` and ``params`` lie.  ``aux`` is the JAX
-    version's auxiliary loss: a float32 zero, since no ported layer has one
-    (MoE waits).  Train mode writes no cache, so the whole pass is
-    differentiable.
+    Runs where ``x_embeds`` and ``params`` lie.  ``aux`` is the layers'
+    summed auxiliary loss, float32 (zero without MoE layers).  Train mode
+    writes no cache, so the whole pass is differentiable.
     """
     b, s, _ = x_embeds.shape
     positions = torch.arange(s, device=x_embeds.device)[None].expand(b, s)
     x = x_embeds.to(_dtype(cfg.dtype))
-    x, _ = _run_stages(params, cfg, x, positions, mode="train", remat=remat)
-    x = rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    x, _, aux = _run_stages(params, cfg, x, positions, mode="train", remat=remat)
+    return rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps), aux
+
+
+def loss_fn(params, cfg: LMConfig, tokens_in, labels, *, prefix_embeds=None):
+    """Next-token cross-entropy (+ MoE aux).  labels: [B, S] (-1 = ignore).
+    Returns (loss + aux, {"nll": loss, "aux": aux})."""
+    logits, aux = forward(params, cfg, tokens_in, prefix_embeds=prefix_embeds)
+    if prefix_embeds is not None:
+        logits = logits[:, prefix_embeds.shape[1]:]
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    valid = labels >= 0
+    gold = torch.gather(logits, -1, torch.where(valid, labels, 0).long()[..., None])[..., 0]
+    nll = torch.where(valid, lse - gold, 0.0)
+    loss = torch.sum(nll) / torch.clamp(torch.sum(valid), min=1)
+    return loss + aux, {"nll": loss, "aux": aux}
 
 
 # -------------------------------------------------------------------- serving
@@ -369,14 +420,22 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int,
     hd = cfg.hd
 
     def one_layer(spec: LayerSpec, repeats: int):
-        _check_ported(spec)
         if spec.mixer in ("full", "swa"):
             s = max_len if spec.mixer == "full" else min(cfg.window, max_len)
             shape = (repeats, batch, s, cfg.n_kv_heads, hd)
             return {"k": torch.zeros(shape, dtype=cdtype, device=dev),
                     "v": torch.zeros(shape, dtype=cdtype, device=dev)}
-        c = rglru.init_rglru_cache(cfg, batch, cdtype, dev)
-        return {k: v.expand((repeats,) + v.shape).contiguous() for k, v in c.items()}
+        if spec.mixer == "mla":
+            m = cfg.mla
+            return {"ckv": torch.zeros((repeats, batch, max_len, m.kv_lora_rank),
+                                       dtype=cdtype, device=dev),
+                    "kpe": torch.zeros((repeats, batch, max_len, m.qk_rope_head_dim),
+                                       dtype=cdtype, device=dev)}
+        if spec.mixer == "rwkv":
+            c = rwkv6.init_rwkv_cache(cfg, batch, cdtype, dev)
+        else:
+            c = rglru.init_rglru_cache(cfg, batch, cdtype, dev)
+        return tree_map(lambda v: v.expand((repeats,) + v.shape).contiguous(), c)
 
     return [{f"sub{i}": one_layer(sp, repeats) for i, sp in enumerate(specs)}
             for specs, repeats in stage_plan(cfg)]
@@ -399,11 +458,11 @@ def scatter_cache(cache, sub, slots):
     return tree_map(put, cache, sub)
 
 
-def prefill(params, cfg: LMConfig, tokens, cache):
-    """Fill ``cache`` (in place) from a prompt.  Returns (last-token logits,
-    cache, lengths)."""
-    x, positions = embed_tokens(params, cfg, tokens)
-    x, cache = _run_stages(params, cfg, x, positions, mode="prefill", caches=cache)
+def prefill(params, cfg: LMConfig, tokens, cache, *, prefix_embeds=None):
+    """Fill ``cache`` (in place) from a prompt (after ``prefix_embeds``, when
+    given).  Returns (last-token logits, cache, lengths)."""
+    x, positions = embed_tokens(params, cfg, tokens, prefix_embeds=prefix_embeds)
+    x, cache, _ = _run_stages(params, cfg, x, positions, mode="prefill", caches=cache)
     x = rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
     logits = logits_fn(params, cfg, x[:, -1:])[:, 0]
     lengths = torch.full((tokens.shape[0],), x.shape[1], dtype=torch.long,
@@ -415,7 +474,7 @@ def decode_step(params, cfg: LMConfig, token, cache, lengths):
     """One decode step.  token: [B, 1], lengths: [B] -> (logits [B, V],
     cache), the cache written in place."""
     x, positions = embed_tokens(params, cfg, token, pos_offset=lengths)
-    x, cache = _run_stages(params, cfg, x, positions, mode="decode",
-                           caches=cache, lengths=lengths)
+    x, cache, _ = _run_stages(params, cfg, x, positions, mode="decode",
+                              caches=cache, lengths=lengths)
     x = rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
     return logits_fn(params, cfg, x[:, 0]), cache

@@ -1,0 +1,178 @@
+"""Mixture-of-Experts FFN (grok-1: 8e top-2; deepseek-v2-lite: 64e top-6 + 2 shared).
+
+Dispatch is sort-based with static capacity (dropless up to
+``capacity_factor``), as in the JAX package: tokens are ordered by expert id
+(a stable sort keeps earlier tokens at higher priority), positions within
+each expert's queue come from segment starts, and tokens beyond capacity are
+dropped (they keep their residual and shared-expert path).  Expert compute
+is one batched product per projection, ``[E, C, d] x [E, d, de]``.
+
+Two choices differ from a literal transcription:
+
+- the top-k breaks ties toward the lower expert id explicitly (a stable
+  descending sort), which is what ``jax.lax.top_k`` does;
+- ``_dispatch_indices`` writes only the kept assignments into the slot
+  table.  The JAX version also writes each dropped one's sentinel at slot
+  ``(e, 0)``, duplicate indices whose ``.at[].set`` result the backend
+  chooses; on the CPU the last write wins and the expert's first kept token
+  is lost too.  The port keeps what the code means: FIFO, dropped ->
+  sentinel only where nothing was kept.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.lm.config import MoEConfig
+from repro_torch.models.lm.layers import Draw, gelu, init_linear, init_mlp, mlp
+
+
+def init_moe(draw: Draw, d_model: int, moe: MoEConfig, d_ff: int, mlp_kind: str,
+             dtype=torch.float32, lead: tuple = ()):
+    de = moe.d_expert or d_ff
+    scale = 1.0 / d_model ** 0.5
+    e = moe.n_experts
+
+    def stack(shape):  # scaled in place: one float32 transient per leaf
+        return draw(lead + shape).mul_(scale).to(dtype)
+
+    p = {
+        # the router stays float32 whatever the parameter dtype, as in JAX
+        "router": init_linear(draw, d_model, e, dtype=torch.float32, lead=lead),
+        "wi": stack((e, d_model, de)),
+        "wg": stack((e, d_model, de)),
+        "wo": stack((e, de, d_model)),
+    }
+    if moe.n_shared:
+        p["shared"] = init_mlp(draw, d_model, moe.n_shared * de, mlp_kind,
+                               dtype=dtype, lead=lead)
+    return p
+
+
+def capacity_of(tokens: int, moe: MoEConfig) -> int:
+    """Slots per expert for ``tokens`` tokens: ``tokens * k / E * cf``,
+    rounded up to a multiple of 128 and at least 128."""
+    capacity = int(tokens * moe.top_k / moe.n_experts * moe.capacity_factor)
+    return max(128, -(-capacity // 128) * 128)
+
+
+def _top_k(probs: torch.Tensor, k: int):
+    """``jax.lax.top_k`` over the last dim: the k largest, in descending
+    order, ties broken toward the lower index."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _dispatch_indices(top_ix: torch.Tensor, n_experts: int, capacity: int):
+    """top_ix: [T, k] expert ids -> slot_src [E, C]: the flat (token, slot)
+    index ``token * k + slot`` held by each expert's queue position, or the
+    sentinel ``T * k`` where the slot is empty.  Integer ops only, no host
+    sync: dropped assignments land in a dump column that is cut off."""
+    t, k = top_ix.shape
+    e_flat = top_ix.reshape(-1)  # token-major: token i slot j -> i*k + j
+    order = torch.argsort(e_flat, stable=True)  # grouped by expert, FIFO inside
+    sorted_e = e_flat[order]
+    counts = torch.zeros(n_experts, dtype=torch.long, device=top_ix.device)
+    counts.index_add_(0, e_flat, torch.ones_like(e_flat))
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(t * k, device=top_ix.device) - starts[sorted_e]
+    col = torch.where(pos < capacity, pos, capacity)  # dropped -> dump column
+    slot_src = torch.full((n_experts, capacity + 1), t * k, dtype=torch.long,
+                          device=top_ix.device)
+    slot_src[sorted_e, col] = order
+    return slot_src[:, :capacity]
+
+
+def _expert_ffn(p, xe, mlp_kind: str, eq_in: str, eq_out: str):
+    """The batched expert FFN over dispatched tokens ``xe``."""
+    dt = xe.dtype
+    if mlp_kind in ("swiglu", "geglu"):
+        act = F.silu if mlp_kind == "swiglu" else gelu
+        hi = torch.einsum(eq_in, xe, p["wi"].to(dt))
+        hg = torch.einsum(eq_in, xe, p["wg"].to(dt))
+        he = act(hg) * hi
+    else:
+        he = gelu(torch.einsum(eq_in, xe, p["wi"].to(dt)))
+    return torch.einsum(eq_out, he, p["wo"].to(dt))
+
+
+def _router(p, x, k: int):
+    """(probs, top_w renormalised, top_ix), float32."""
+    probs = torch.softmax(x.float() @ p["router"]["w"].float(), dim=-1)
+    top_w, top_ix = _top_k(probs, k)
+    return probs, top_w / top_w.sum(-1, keepdim=True), top_ix
+
+
+def moe_ffn(p, x: torch.Tensor, moe: MoEConfig, mlp_kind: str, *, groups: int = 1):
+    """x: [B, S, d] -> (y, aux_loss).
+
+    ``groups > 1``: grouped local dispatch (:func:`_moe_ffn_grouped`), each
+    group of tokens with its own capacity; the JAX package reaches it only
+    through a sharding's ``moe_groups``.
+    """
+    b, s, d = x.shape
+    if groups > 1:
+        return _moe_ffn_grouped(p, x, moe, mlp_kind, groups=groups)
+    t, k = b * s, moe.top_k
+    xf = x.reshape(t, d)
+    probs, top_w, top_ix = _router(p, xf, k)
+    slot_src = _dispatch_indices(top_ix, moe.n_experts, capacity_of(t, moe))
+
+    token_of = slot_src // k  # sentinel t*k -> t (out of range)
+    valid = slot_src < t * k
+    xe = xf[torch.where(valid, token_of, 0)]  # [E, C, d]
+    w_slot = torch.where(valid, top_w.reshape(-1)[torch.where(valid, slot_src, 0)], 0.0)
+    ye = _expert_ffn(p, xe, mlp_kind, "ecd,edf->ecf", "ecf,efd->ecd")
+
+    # Combine: scatter-add weighted expert outputs back to tokens (+1 dump row).
+    contrib = (ye * w_slot[..., None].to(x.dtype)).reshape(-1, d)
+    yf = torch.zeros((t + 1, d), dtype=x.dtype, device=x.device).index_add(
+        0, torch.where(valid, token_of, t).reshape(-1), contrib)
+    y = yf[:t].reshape(b, s, d)
+    if moe.n_shared:
+        y = y + mlp(p["shared"], x, mlp_kind)
+
+    # Load-balancing aux loss (Switch-style): E * sum_e f_e * P_e
+    me = probs.mean(0)
+    fe = F.one_hot(top_ix, moe.n_experts).float().sum(1).mean(0)
+    return y, moe.aux_loss_coef * moe.n_experts * torch.sum(fe * me)
+
+
+def _moe_ffn_grouped(p, x, moe: MoEConfig, mlp_kind: str, *, groups: int):
+    """Grouped local dispatch with an explicit leading group dim: every
+    dispatch op (sort, position, gather, scatter) runs per group, each group
+    with its own capacity."""
+    b, s, d = x.shape
+    t = b * s
+    if t % groups:
+        raise ValueError(f"{t} tokens do not split into {groups} groups")
+    tg = t // groups
+    e, k = moe.n_experts, moe.top_k
+    xg = x.reshape(groups, tg, d)
+    probs, top_w, top_ix = _router(p, xg, k)  # [g, tg, E], [g, tg, k]
+    capacity = capacity_of(tg, moe)
+    slot_src = torch.stack([_dispatch_indices(top_ix[g], e, capacity)
+                            for g in range(groups)])  # [g, E, C]
+
+    token_of = slot_src // k
+    valid = slot_src < tg * k
+    gather_ix = torch.where(valid, token_of, 0).reshape(groups, e * capacity)
+    xe = torch.gather(xg, 1, gather_ix[..., None].expand(-1, -1, d))
+    xe = xe.reshape(groups, e, capacity, d)
+    w_flat = top_w.reshape(groups, tg * k)
+    w_slot = torch.where(valid, torch.gather(
+        w_flat, 1, torch.where(valid, slot_src, 0).reshape(groups, e * capacity)
+    ).reshape(groups, e, capacity), 0.0)
+    ye = _expert_ffn(p, xe, mlp_kind, "gecd,edf->gecf", "gecf,efd->gecd")
+
+    scatter_ix = torch.where(valid, token_of, tg).reshape(groups, e * capacity)
+    contrib = (ye * w_slot[..., None].to(x.dtype)).reshape(groups, e * capacity, d)
+    yf = torch.zeros((groups, tg + 1, d), dtype=x.dtype, device=x.device).scatter_add(
+        1, scatter_ix[..., None].expand(-1, -1, d), contrib)
+    y = yf[:, :tg].reshape(b, s, d)
+    if moe.n_shared:
+        y = y + mlp(p["shared"], x, mlp_kind)
+
+    me = probs.mean((0, 1))
+    fe = F.one_hot(top_ix, e).float().sum(2).mean((0, 1))
+    return y, moe.aux_loss_coef * e * torch.sum(fe * me)

@@ -1,0 +1,142 @@
+"""RWKV-6 "Finch" block: time-mix with data-dependent decay + channel-mix.
+
+Per head (size hs) the wkv recurrence over tokens t is
+
+    out_t = r_t · (S_{t-1} + (u ⊙ k_t) v_tᵀ)
+    S_t   = diag(w_t) S_{t-1} + k_t v_tᵀ
+
+with w_t = exp(-exp(w0 + lora_w(x̄_t))) the data-dependent per-channel decay
+and token-shift interpolation x̄ = lerp(x_t, x_{t-1}, μ + lora).  The state is
+[H, hs, hs] a sequence, whatever the context length.  The JAX package's
+``lax.scan`` over time is a Python loop here, with a float32 state; the
+cache stores the state in its own dtype, as the JAX package does.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.lm.config import LMConfig
+from repro_torch.models.lm.layers import Draw, init_linear, linear, rms_norm
+
+_LORA_R = 32
+
+
+def _uniform(draw: Draw, shape) -> torch.Tensor:
+    """Uniform [0, 1) draws made from the normal draws (the normal CDF)."""
+    return torch.special.ndtr(draw(shape))
+
+
+def _lora_init(draw: Draw, d, out, dtype, lead):
+    return {"a": (draw(lead + (d, _LORA_R)) * 0.01).to(dtype),
+            "b": (draw(lead + (_LORA_R, out)) * 0.01).to(dtype)}
+
+
+def _lora(p, x):
+    return torch.tanh(x @ p["a"].to(x.dtype)) @ p["b"].to(x.dtype)
+
+
+def init_rwkv_block(draw: Draw, cfg: LMConfig, dtype=torch.float32, lead: tuple = ()):
+    """The JAX package's parameters, in shape and in how they are drawn: the
+    five time-mix μ share one draw, as do the two channel-mix μ; ``w0`` and
+    ``u`` are float32 whatever the parameter dtype."""
+    d = cfg.d_model
+    hs = cfg.rwkv_head_size
+    n_h = d // hs
+    mu = (_uniform(draw, lead + (d,)) * 0.5 + 0.25).to(dtype)
+    cm_mu = (_uniform(draw, lead + (d,)) * 0.5 + 0.25).to(dtype)
+    return {
+        "mu": {n: mu.clone() for n in ("r", "k", "v", "g", "w")},
+        "lora_mix": _lora_init(draw, d, d, dtype, lead),  # shared data-dep shift mix
+        "wr": init_linear(draw, d, d, dtype=dtype, lead=lead),
+        "wk": init_linear(draw, d, d, dtype=dtype, lead=lead),
+        "wv": init_linear(draw, d, d, dtype=dtype, lead=lead),
+        "wg": init_linear(draw, d, d, dtype=dtype, lead=lead),
+        "w0": torch.full(lead + (d,), -0.6, dtype=torch.float32, device=mu.device),
+        "lora_w": _lora_init(draw, d, d, dtype, lead),
+        "u": draw(lead + (n_h, hs)) * 0.1,
+        "ln_x": torch.ones(lead + (d,), dtype=dtype, device=mu.device),  # per-head norm gain
+        "wo": init_linear(draw, d, d, dtype=dtype, lead=lead),
+        # channel mix
+        "cm_mu_k": cm_mu,
+        "cm_mu_r": cm_mu.clone(),
+        "cm_k": init_linear(draw, d, cfg.d_ff, dtype=dtype, lead=lead),
+        "cm_v": init_linear(draw, cfg.d_ff, d, dtype=dtype, lead=lead),
+        "cm_r": init_linear(draw, d, d, dtype=dtype, lead=lead),
+    }
+
+
+def _shift(x, last=None):
+    """Token shift: x_{t-1} (zeros, or the carried ``last``, at t=0).
+    x: [B, S, d]."""
+    prev = torch.zeros_like(x[:, :1]) if last is None else last[:, None]
+    return torch.cat([prev, x[:, :-1]], dim=1)
+
+
+def _wkv_scan(r, k, v, w, u, s0):
+    """r/k/v: [B, S, H, hs], w: [B, S, H, hs] decay in (0,1), u: [H, hs],
+    s0: [B, H, hs, hs].  Returns (out [B, S, H, hs], s_last).
+
+    ``r·(S + (u ⊙ k) vᵀ)`` is taken as ``r·S + (Σ r ⊙ u ⊙ k) v``: the same
+    sum in another order, which never forms the [B, H, hs, hs] bonus term,
+    so autograd keeps one state a step (the ``S`` that ``r·S`` and
+    ``w ⊙ S`` both read) instead of three.
+    """
+    s = s0
+    outs = []
+    for t in range(r.shape[1]):
+        rt, kt, vt, wt = r[:, t], k[:, t], v[:, t], w[:, t]  # [B, H, hs]
+        bonus = torch.sum(rt * u * kt, dim=-1, keepdim=True)  # [B, H, 1]
+        outs.append(torch.einsum("bhk,bhkv->bhv", rt, s) + bonus * vt)
+        s = wt[..., :, None] * s + kt[..., :, None] * vt[..., None, :]
+    return torch.stack(outs, dim=1), s
+
+
+def time_mix(p, cfg: LMConfig, x, *, cache=None):
+    """x: [B, S, d] -> (y, new_cache {shift [B, d], state [B, H, hs, hs]})."""
+    b, s, d = x.shape
+    hs = cfg.rwkv_head_size
+    n_h = d // hs
+    last = None if cache is None else cache["shift"]
+    xs = _shift(x, last)
+    mix = _lora(p["lora_mix"], x)
+
+    def lerp(name):
+        mu = p["mu"][name].to(x.dtype)
+        return x + (xs - x) * torch.clamp(mu + mix, 0.0, 1.0)
+
+    r = linear(p["wr"], lerp("r")).reshape(b, s, n_h, hs)
+    k = linear(p["wk"], lerp("k")).reshape(b, s, n_h, hs)
+    v = linear(p["wv"], lerp("v")).reshape(b, s, n_h, hs)
+    g = F.silu(linear(p["wg"], lerp("g")))
+    w_log = p["w0"].float() + _lora(p["lora_w"], lerp("w")).float()
+    w = torch.exp(-torch.exp(w_log)).reshape(b, s, n_h, hs)  # data-dependent decay
+
+    s0 = (torch.zeros((b, n_h, hs, hs), dtype=torch.float32, device=x.device)
+          if cache is None else cache["state"].float())
+    out, s_last = _wkv_scan(r.float(), k.float(), v.float(), w, p["u"].float(), s0)
+    out = out.reshape(b, s, d).to(x.dtype)
+    out = rms_norm(out.reshape(b, s, n_h, hs), 1.0, cfg.norm_eps).reshape(b, s, d)
+    y = linear(p["wo"], out * p["ln_x"].to(x.dtype) * g)
+    return y, {"shift": x[:, -1], "state": s_last.to(x.dtype)}
+
+
+def channel_mix(p, cfg: LMConfig, x, *, cache=None):
+    last = None if cache is None else cache["shift"]
+    xs = _shift(x, last)
+    mk = x + (xs - x) * p["cm_mu_k"].to(x.dtype)
+    mr = x + (xs - x) * p["cm_mu_r"].to(x.dtype)
+    k = torch.square(F.relu(linear(p["cm_k"], mk)))
+    return (torch.sigmoid(linear(p["cm_r"], mr)) * linear(p["cm_v"], k),
+            {"shift": x[:, -1]})
+
+
+def init_rwkv_cache(cfg: LMConfig, batch: int, dtype, device) -> dict:
+    hs = cfg.rwkv_head_size
+    n_h = cfg.d_model // hs
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return {"tm": {"shift": zeros(batch, cfg.d_model), "state": zeros(batch, n_h, hs, hs)},
+            "cm": {"shift": zeros(batch, cfg.d_model)}}

@@ -53,16 +53,24 @@ def clip_by_global_norm(grads: Any, max_norm: float) -> tuple[Any, torch.Tensor]
 @torch.no_grad()
 def apply_updates(params: Any, grads: Any, state: dict, cfg: AdamConfig,
                   lr: torch.Tensor | float) -> tuple[Any, dict, torch.Tensor | None]:
-    """One AdamW step.  Returns ``(params, state, grad_norm | None)``."""
-    grad_norm = None
+    """One AdamW step.  Returns ``(params, state, grad_norm | None)``.
+
+    Clipping scales each gradient leaf inside its own update, with
+    :func:`clip_by_global_norm`'s arithmetic, so no clipped copy of the
+    whole gradient tree is held beside the new parameters and moments.
+    """
+    grad_norm = scale = None
     if cfg.grad_clip is not None:
-        grads, grad_norm = clip_by_global_norm(grads, cfg.grad_clip)
+        grad_norm = global_norm(grads)
+        scale = torch.clamp(cfg.grad_clip / torch.clamp(grad_norm, min=1e-12), max=1.0)
     step = state["step"] + 1
     b1c = float(np.float32(1.0) - np.float32(cfg.b1) ** np.float32(step))
     b2c = float(np.float32(1.0) - np.float32(cfg.b2) ** np.float32(step))
     dt = torch_dtype(cfg.state_dtype)
 
     def upd(p, g, m, v):
+        if scale is not None:
+            g = (g.float() * scale).to(g.dtype)
         g32 = g.float()
         m32 = m.float() * cfg.b1 + g32 * (1.0 - cfg.b1)
         v32 = v.float() * cfg.b2 + torch.square(g32) * (1.0 - cfg.b2)

@@ -54,7 +54,7 @@ class PipelineConfig:
 
     batch_per_rank: int = 8
     placement: Placement = Placement.REPLICATED
-    gather: str = "slice"  # slice | take | fused | pallas | auto
+    gather: str = "slice"  # slice | take | fused | pallas | auto | lm
     seed: int = 0
     # Worker count for the sampler.  None = the process group's size; set it
     # in one process to simulate w lock-step workers (the global batch is

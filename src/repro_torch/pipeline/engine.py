@@ -58,7 +58,8 @@ from repro_torch.distributed import (Checkpointer, HeartbeatMonitor,
                                      checkpoint_meta, latest_step, plan_remesh,
                                      restore, scale_batch_or_steps)
 from repro_torch.pipeline.dataplane import DataPlane, PipelineConfig, build_dataplane
-from repro_torch.pipeline.gathers import EXCHANGE_IMPL, exchange_windows, resolve_gather
+from repro_torch.pipeline.gathers import (EXCHANGE_IMPL, exchange_windows,
+                                          resolve_gather, split_windows)
 from repro_torch.pipeline.prefetch import FeedPrefetcher, PrefetchPlan
 from repro_torch.train.loop import (RestartSignal, combine_weighted,
                                     init_train_state, make_train_step,
@@ -246,8 +247,8 @@ class Engine:
                 f"of {self.dataplane.processes}: a dead peer's rows are gone and "
                 "its collectives fail; use ElasticConfig(remesh='relaunch') so "
                 "the launcher relaunches the fleet into the planned world")
-        params = tree_map(lambda p: p.detach().clone(), self.init_params)
-        state = init_train_state(params, self.config.adam)
+        state = init_train_state(tree_map(lambda p: p.detach().clone(), self.init_params),
+                                 self.config.adam)
         if el is None:
             checkpointer = Checkpointer(loop.ckpt_dir) if loop.ckpt_dir else None
         elif el.leader is not None or self.dataplane.process == 0:
@@ -305,9 +306,13 @@ class Engine:
                     dp.grid_stream(epoch, start=done, chunk=plan.chunk),
                     dp.prefetch_transfer(plan.staleness), plan, device=dp.device)
         while True:
+            # Hand the state over: run_training's reference is then the only
+            # one, so each step's predecessor (parameters and moments) is
+            # freed as the next one lands, not kept for the whole run.
+            box, state = [state], None
             try:
                 state, hist = run_training(
-                    state=state, train_step=self.train_step, sampler=self.dataplane,
+                    state=box.pop(), train_step=self.train_step, sampler=self.dataplane,
                     batch_of_starts=self.dataplane.batch_of_starts, loop=loop,
                     eval_fn=eval_fn, checkpointer=checkpointer,
                     start_epoch=start_epoch, start_step=start_step,
@@ -607,7 +612,7 @@ def _compile(dataplane: DataPlane, loss_fn: Callable, config: PipelineConfig):
                                 impl=impl)[keep]
 
     def window_loss(params, windows):
-        return loss_fn(params, windows[:, :spec.in_len], windows[:, spec.in_len:])
+        return loss_fn(params, *split_windows(config.gather, windows, spec.in_len))
 
     def exchange_loss(params, starts, keep):
         return window_loss(params, exchanged(starts, keep))

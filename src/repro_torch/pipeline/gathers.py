@@ -17,6 +17,10 @@ results for in-range starts, different lowerings:
   ``set_autotune(mode="tune")``; the static default (``slice`` on the CPU,
   ``pallas`` on the card) when no verdict covers the bucket.  Every variant
   is bit-identical, so ``auto`` only ever changes speed, never values.
+- ``lm``     — token-stream windows (``core.batching.lm_window_batch``):
+  the one contract deviation — y is x shifted by one inside the same span
+  (``x: [B, input_len]``, ``y: [B, input_len]``), so ``horizon`` only sets
+  the window span (use ``WindowSpec(horizon=1, input_len=seq_len)``).
 
 Under the distributed placements a rank holds only some time rows of the
 series (``core/distributed.resident_rows``): the data plane hands the
@@ -24,9 +28,8 @@ gathers starts REBASED to the rows' origin, checked on the host to lie
 inside them, so any variant above gathers from the resident slice as it
 would from the whole series.  :func:`exchange_windows` assembles windows
 whose rows lie on several ranks (``ONDEMAND``'s train batches, and the eval
-batches of both time-sharded placements).
-
-The JAX package's ``lm`` (token-stream windows) arrives with a later slice.
+batches of both time-sharded placements); :func:`split_windows` cuts its
+windows into (x, y) as the named gather would.
 """
 from __future__ import annotations
 
@@ -37,7 +40,18 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.batching import (gather_batch, gather_batch_fused,
-                                       gather_batch_take)
+                                       gather_batch_take, lm_window_batch)
+
+
+def lm_gather(series, starts, *, input_len: int, horizon: int):
+    """LM next-token windows: inputs = stream[s:s+L], labels = shift-by-one.
+
+    ``horizon`` is fixed by the WindowSpec span (the extra label token) and
+    unused here: the gather reads ``input_len + 1`` tokens and splits them
+    into the (x, y) pair.
+    """
+    del horizon
+    return lm_window_batch(series, starts, seq_len=input_len)
 
 
 def gather_batch_auto(series, starts, *, input_len: int, horizon: int):
@@ -96,18 +110,22 @@ GATHERS: dict[str, Callable] = {
     "fused": gather_batch_fused,
     "pallas": functools.partial(gather_batch_fused, use_pallas=True),
     "auto": gather_batch_auto,
+    "lm": lm_gather,
 }
 
-_LATER = {"lm": "the LM slice (token-stream windows)"}
+
+def split_windows(name: str, windows: torch.Tensor, input_len: int):
+    """(x, y) of whole ``[G, span, ...]`` windows, as gather ``name`` splits
+    them: ``lm`` shifts y by one token, every other gather cuts at
+    ``input_len``."""
+    if name == "lm":
+        return windows[:, :input_len], windows[:, 1:input_len + 1]
+    return windows[:, :input_len], windows[:, input_len:]
 
 
 def resolve_gather(name: str) -> Callable:
     try:
         return GATHERS[name]
     except KeyError:
-        if name in _LATER:
-            raise NotImplementedError(
-                f"gather {name!r} is not ported yet; it arrives with "
-                f"{_LATER[name]}") from None
         raise ValueError(
             f"unknown gather {name!r}; expected one of {sorted(GATHERS)}") from None

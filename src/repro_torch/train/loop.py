@@ -233,6 +233,8 @@ def make_train_step(
                                         materialize_grads=True)
         if gdt is not None:
             grads = [g.to(gdt) for g in grads]
+        metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
+                   for k, v in metrics.items()}
         return loss.detach(), metrics, tree_unflatten(params, list(grads))
 
     def step(state, batch):

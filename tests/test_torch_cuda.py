@@ -22,6 +22,7 @@ from repro_torch.kernels.linear_scan import linear_scan, linear_scan_ref
 from repro_torch.kernels.window_gather import window_gather
 from repro_torch.kernels.window_gather import kernel as wg_kernel
 from repro_torch.pipeline.gathers import resolve_gather
+from repro_torch.tree import tree_leaves, tree_map, tree_paths, tree_unflatten
 
 GATHER_SHAPES = [  # tests/test_kernels.py's window_gather cases, and two more
     (64, (24, 2), 6, 8, np.float32),
@@ -539,7 +540,6 @@ def test_cuda_elastic_shrink_grow_is_bit_equal_to_the_uninterrupted_run(cuda, tm
     from repro_torch.optim import AdamConfig
     from repro_torch.pipeline import ElasticConfig, PipelineConfig, build_pipeline
     from repro_torch.train import TrainLoopConfig
-    from repro_torch.tree import tree_leaves
 
     nodes = 16
     cfg = pgt_dcrnn.PGTDCRNNConfig(num_nodes=nodes, in_features=2, out_features=1,
@@ -616,7 +616,6 @@ def test_cuda_section55_step_through_the_kernel_gather_is_bit_equal_to_slice(cud
     from repro_torch.models import a3tgcn, stllm
     from repro_torch.pipeline import PipelineConfig, build_pipeline
     from repro_torch.train.loop import init_train_state
-    from repro_torch.tree import tree_leaves
 
     spec = WindowSpec(horizon=12, input_len=12)
     ds = IndexDataset.from_raw(make_traffic_series(400, BAY_NODES), spec)
@@ -649,3 +648,88 @@ def test_cuda_section55_step_through_the_kernel_gather_is_bit_equal_to_slice(cud
     (loss_k, params_k), (loss_s, params_s) = runs["pallas"], runs["slice"]
     assert torch.equal(loss_k, loss_s) and torch.isfinite(loss_k)
     assert all(torch.equal(a, b) for a, b in zip(params_k, params_s))
+
+
+# ---------------------------------------- forward-only kernels and the LM family
+@pytest.mark.cuda
+def test_cuda_kernel_paths_refuse_gradients(cuda):
+    """The CPU tests' refusal, on the card: the ops and the kernel wrappers
+    raise on inputs that require grad, and launch under ``no_grad``."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.rand(2, 16, 32, device=cuda, generator=g)
+    b = torch.randn(2, 16, 32, device=cuda, generator=g).requires_grad_(True)
+    q, k, v = (torch.randn(1, 64, 2, 32, device=cuda, generator=g).requires_grad_(True)
+               for _ in range(3))
+    for call in (lambda: linear_scan(a, b, use_pallas=True),
+                 lambda: ls_kernel.linear_scan(a, b),
+                 lambda: flash_attention(q, k, v, use_pallas=True),
+                 lambda: fa_kernel.flash_attention(*(t.transpose(1, 2) for t in (q, k, v)))):
+        with pytest.raises(NotImplementedError, match="no backward"):
+            call()
+    before = (ls_kernel.linear_scan.launches, fa_kernel.flash_attention.launches)
+    with torch.no_grad():
+        seq, _ = linear_scan(a, b, use_pallas=True)
+        out = flash_attention(q, k, v, use_pallas=True)
+    torch.cuda.synchronize()
+    assert (ls_kernel.linear_scan.launches, fa_kernel.flash_attention.launches) \
+        == (before[0] + 1, before[1] + 1)
+    assert torch.equal(seq, linear_scan_ref(a, b.detach(), None)[0])
+    ref = flash_attention_ref(*(t.detach().transpose(1, 2) for t in (q, k, v))).transpose(1, 2)
+    assert float((out - ref).abs().max()) <= 5e-5
+
+
+@pytest.mark.cuda
+def test_cuda_recurrentgemma_loss_through_the_kernel_scan_raises(cuda):
+    from repro_torch.configs import get_arch
+    from repro_torch.models.lm import model as lm
+
+    cfg = dataclasses.replace(get_arch("recurrentgemma-2b").smoke_config(),
+                              use_pallas_scan=True)
+    params = lm.init(torch.Generator(device=cuda).manual_seed(0), cfg, device=cuda)
+    for t in tree_leaves(params):
+        t.requires_grad_(True)
+    toks = torch.randint(0, cfg.vocab, (2, 8), device=cuda)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        lm.loss_fn(params, cfg, toks, toks)
+
+
+LM_NEW = ("qwen1.5-4b", "minitron-8b", "granite-34b", "h2o-danube-3-4b",
+          "internvl2-26b", "musicgen-large", "grok-1-314b", "deepseek-v2-lite-16b",
+          "rwkv6-1.6b")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch_id", LM_NEW)
+def test_cuda_lm_arch_matches_the_cpu(cuda, arch_id):
+    """Each new arch's smoke config in float32 (TF32 off): the loss and
+    every gradient on the card against the same parameters on the CPU,
+    within atol 1e-4 plus rtol 1e-3 (cuBLAS sums in another order); and
+    prefill plus 4 decode steps against a teacher-forced forward, within
+    1e-4 (tests/test_models_smoke.py's identity, on the card)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.lm import model as lm
+
+    cfg = get_arch(arch_id).smoke_config()
+    cpu_params = lm.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    params = tree_map(lambda t: t.to(cuda), cpu_params)
+    toks = torch.randint(0, cfg.vocab, (2, 12), generator=torch.Generator().manual_seed(1))
+    grads = []
+    for dev, p in ((torch.device("cpu"), cpu_params), (cuda, params)):
+        leaves = [t.detach().clone().requires_grad_(True) for t in tree_leaves(p)]
+        loss, _ = lm.loss_fn(tree_unflatten(p, leaves), cfg, toks.to(dev), toks.to(dev))
+        grads.append((loss, torch.autograd.grad(loss, leaves, allow_unused=True,
+                                                materialize_grads=True)))
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = grads
+    torch.testing.assert_close(l_gpu.cpu(), l_cpu, atol=1e-4, rtol=1e-3)
+    for path, a, b in zip(tree_paths(cpu_params), g_gpu, g_cpu):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-3, msg=path)
+    seq = toks.to(cuda)
+    with torch.no_grad():
+        full, _ = lm.forward(params, cfg, seq)
+        cache = lm.init_cache(cfg, 2, 16, device=cuda)
+        logits, cache, lengths = lm.prefill(params, cfg, seq[:, :8], cache)
+        torch.testing.assert_close(logits, full[:, 7], atol=1e-4, rtol=1e-4)
+        for t in range(8, 12):
+            logits, cache = lm.decode_step(params, cfg, seq[:, t:t + 1], cache, lengths)
+            lengths = lengths + 1
+            torch.testing.assert_close(logits, full[:, t], atol=1e-4, rtol=1e-4)

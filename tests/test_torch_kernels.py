@@ -97,7 +97,10 @@ def test_window_gather_cpu_counts_no_launch():
     assert wg_kernel.window_gather.launches == before
 
 
-@pytest.mark.parametrize("name", sorted(GATHERS))
+# "lm" has another contract (y = shift(x), token streams), as the JAX
+# package's tests/test_pipeline.py excludes it; tests/test_torch_lm_train.py
+# holds it to lm_window_batch
+@pytest.mark.parametrize("name", sorted(n for n in GATHERS if n != "lm"))
 def test_every_gather_matches_jax_gather_batch(name):
     rng = np.random.default_rng(4)
     series = rng.standard_normal((90, 7, 2)).astype(np.float32)
@@ -111,8 +114,9 @@ def test_every_gather_matches_jax_gather_batch(name):
 
 
 def test_gathers_not_ported_yet_raise():
-    with pytest.raises(NotImplementedError):
-        resolve_gather("lm")
+    """Every gather of the JAX package resolves, ``lm`` included; an
+    unknown name raises."""
+    assert resolve_gather("lm") is GATHERS["lm"]
     with pytest.raises(ValueError):
         resolve_gather("nope")
 
@@ -349,3 +353,79 @@ def test_linear_scan_dtypes_and_cpu_counts_no_launch():
         h = a[:, t].bfloat16().float() * h + bb[:, t].bfloat16().float()
         assert torch.equal(seq[:, t], h.bfloat16())
     assert torch.equal(last, h)
+
+
+# ------------------------------------------------- forward-only kernel paths
+def _flash_inputs(requires_grad):
+    g = torch.Generator().manual_seed(0)
+    return [torch.randn(1, 8, 2, 16, generator=g).requires_grad_(requires_grad)
+            for _ in range(3)]
+
+
+def test_linear_scan_kernel_path_refuses_gradients_as_jax_does():
+    """``use_pallas=True`` is forward-only in both packages: ``jax.grad``
+    through the Pallas scan fails its assert, the port raises
+    ``NotImplementedError`` on the CPU as on the card, before the kernel
+    wrapper; under ``no_grad`` (serving) it runs, and the plain path trains."""
+    import jax
+
+    rng = np.random.default_rng(4)
+    a, bb, h0 = _scan_inputs(rng, 2, 6, 8)
+    with pytest.raises(AssertionError):
+        jax.grad(lambda x: jax_linear_scan(jnp.asarray(a), x, jnp.asarray(h0),
+                                           use_pallas=True)[0].sum())(jnp.asarray(bb))
+    ta, th0 = torch.as_tensor(a), torch.as_tensor(h0)
+    tb = torch.as_tensor(bb).requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        linear_scan(ta, tb, th0, use_pallas=True)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        linear_scan(ta, tb, th0, impl="pallas")
+    with torch.no_grad():
+        seq, _ = linear_scan(ta, tb, th0, use_pallas=True)
+    linear_scan(ta, tb, th0)[0].sum().backward()
+    assert torch.equal(seq, linear_scan(ta, tb.detach(), th0, use_pallas=True)[0])
+    assert tb.grad is not None and float(tb.grad.abs().sum()) > 0
+
+
+def test_flash_attention_kernel_path_refuses_gradients():
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q, k, v = _flash_inputs(True)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        flash_attention(q, k, v, use_pallas=True)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        flash_attention(q, k.detach(), v.detach(), impl="pallas")
+    with torch.no_grad():
+        out = flash_attention(q, k, v, use_pallas=True)
+    assert out.shape == q.shape
+    flash_attention(q, k, v).sum().backward()
+    assert q.grad is not None and torch.isfinite(q.grad).all()
+
+
+@pytest.mark.parametrize("use_pallas_scan", [True, False])
+def test_recurrentgemma_loss_through_the_kernel_scan_raises(use_pallas_scan):
+    """An LM step with ``use_pallas_scan=True`` cannot quietly give the
+    RG-LRU's weights upstream of the scan a zero gradient: the loss raises.
+    The plain scan trains them."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.lm import model as tm
+    from repro_torch.tree import tree_leaves, tree_paths, tree_unflatten
+
+    cfg = dataclasses.replace(get_arch("recurrentgemma-2b").smoke_config(),
+                              use_pallas_scan=use_pallas_scan)
+    params = tm.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    leaves = [t.requires_grad_(True) for t in tree_leaves(params)]
+    toks = torch.randint(0, cfg.vocab, (2, 8), generator=torch.Generator().manual_seed(1))
+    if use_pallas_scan:
+        with pytest.raises(NotImplementedError, match="no backward"):
+            tm.loss_fn(tree_unflatten(params, leaves), cfg, toks, toks)
+        with torch.no_grad():
+            loss, _ = tm.loss_fn(params, cfg, toks, toks)
+        assert torch.isfinite(loss)
+        return
+    loss, _ = tm.loss_fn(tree_unflatten(params, leaves), cfg, toks, toks)
+    grads = dict(zip(tree_paths(params), torch.autograd.grad(loss, leaves)))
+    assert float(grads["stages/0/sub0/rec/wx/w"].abs().sum()) > 0
+    assert float(grads["stages/0/sub0/rec/in_x/w"].abs().sum()) > 0

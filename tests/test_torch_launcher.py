@@ -7,8 +7,8 @@ from a mid-epoch checkpoint continues bit for bit; ``--init-distributed``,
 ``torch.distributed.run`` with two processes on gloo; the elastic flags
 train (an all-healthy fleet, a file transport), refuse their bad
 combinations and write an atomic plan on exit 75 (the kill cycles are
-tests/test_torch_multihost.py); and every flag of a later slice raises,
-naming its ``ROADMAP.md`` item."""
+tests/test_torch_multihost.py).  The LM archs through the launcher:
+tests/test_torch_lm_train.py and tests/test_torch_lm_launcher.py."""
 import dataclasses
 import json
 import os
@@ -205,15 +205,6 @@ def test_the_global_batch_must_divide_by_the_world(monkeypatch):
     monkeypatch.setattr(launcher, "dp_size", lambda: 3)
     with pytest.raises(SystemExit, match="--batch 4 not divisible by data-parallel size 3"):
         main(["--arch", "dcrnn-pems", *SMALL, "--device", "cpu"])
-
-
-@pytest.mark.parametrize("extra,item", [
-    (["--smoke"], "item 6"), (["--arch", "recurrentgemma-2b"], "item 6"),
-    (["--arch", "qwen1.5-4b"], "item 6"),
-])
-def test_flags_of_later_slices_raise_with_their_roadmap_item(extra, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {item} "):
-        main(["--arch", "dcrnn-pems", *SMALL, "--device", "cpu", *extra])
 
 
 def _elastic_run(tmp_path, *extra):

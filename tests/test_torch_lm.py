@@ -18,12 +18,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCHS as JAX_ARCHS
+from repro.configs import LM_ARCHS as JAX_LM_ARCHS
 from repro.configs import get_arch as jax_get_arch
 from repro.models.lm import attention as jattn
 from repro.models.lm import layers as jlayers
 from repro.models.lm import model as jm
 from repro.models.lm import rglru as jrglru
-from repro_torch.configs import get_arch
+from repro_torch.configs import ARCHS, LM_ARCHS, get_arch
 from repro_torch.interop import params_from_jax
 from repro_torch.models.lm import attention as tattn
 from repro_torch.models.lm import layers as tlayers
@@ -57,14 +59,24 @@ def rg():
 
 # ---------------------------------------------------------- config, params
 def test_registry_matches_the_jax_arch_and_names_unported_ones():
-    ours, theirs = get_arch("recurrentgemma-2b"), jax_get_arch("recurrentgemma-2b")
-    assert dataclasses.asdict(ours.lm) == dataclasses.asdict(theirs.lm)
-    assert (dataclasses.asdict(ours.smoke_config())
-            == dataclasses.asdict(theirs.smoke_config()))
-    assert ours.lm.param_count() == theirs.lm.param_count()
-    for arch in ("qwen1.5-4b", "grok-1-314b", "rwkv6-1.6b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            get_arch(arch)
+    """All twelve archs of the JAX registry resolve, with equal configs,
+    smoke configs, cells, skips and parameter counts; an unknown id raises."""
+    assert sorted(ARCHS) == sorted(JAX_ARCHS) and len(ARCHS) == 12
+    assert sorted(LM_ARCHS) == sorted(JAX_LM_ARCHS)
+    for arch_id in JAX_ARCHS:
+        ours, theirs = get_arch(arch_id), jax_get_arch(arch_id)
+        assert (ours.id, ours.family, ours.source) == (theirs.id, theirs.family, theirs.source)
+        assert [dataclasses.astuple(c) for c in ours.cells(include_skipped=True)] \
+            == [dataclasses.astuple(c) for c in theirs.cells(include_skipped=True)]
+        assert ours.skips == theirs.skips
+        if theirs.lm is None:
+            assert ours.lm is None
+            continue
+        assert dataclasses.asdict(ours.lm) == dataclasses.asdict(theirs.lm)
+        assert (dataclasses.asdict(ours.smoke_config())
+                == dataclasses.asdict(theirs.smoke_config()))
+        assert ours.lm.param_count() == theirs.lm.param_count()
+        assert ours.lm.active_param_count() == theirs.lm.active_param_count()
     with pytest.raises(KeyError):
         get_arch("nope")
 
@@ -108,14 +120,6 @@ def test_compute_copy_casts_all_but_lam_and_shares_what_is_in_place(rg):
         assert leaf.dtype == (torch.float32 if path.endswith("lam") else torch.bfloat16)
     again = tm.compute_copy(copy, bf, device="cpu")
     assert all(a is b for a, b in zip(tree_leaves(again), tree_leaves(copy)))
-
-
-def test_unported_mixers_and_ffns_raise():
-    qwen = jax_get_arch("qwen1.5-4b").smoke_config()
-    for kw in ({"rwkv": True}, {"attn": "mla"}):
-        cfg = LMConfig(**{**dataclasses.asdict(qwen), **kw})
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tm.init(torch.Generator(), cfg, device="cpu")
 
 
 # ------------------------------------------------------------------ layers
@@ -220,8 +224,9 @@ def test_rglru_block_matches_jax(rg, mode, use_pallas):
 def test_forward_matches_jax_through_banded_attention(rg):
     jcfg, tcfg, jparams, tparams = rg
     toks = np.random.default_rng(6).integers(0, tcfg.vocab, (2, 48)).astype(np.int32)
-    jl, _ = jm.forward(jparams, jcfg, jnp.asarray(toks))
-    tl = tm.forward(tparams, tcfg, _t(toks, torch.long))
+    jl, jaux = jm.forward(jparams, jcfg, jnp.asarray(toks))
+    tl, taux = tm.forward(tparams, tcfg, _t(toks, torch.long))
+    _close(taux, jaux)
     assert tl.shape == (2, 48, tcfg.padded_vocab)
     _close(tl, jl)
 
@@ -256,8 +261,8 @@ def test_prefill_and_20_decode_steps_match_jax(rg):
 ], ids=["rope", "learned-tied-padded"])
 def test_full_attention_arch_matches_jax(variant):
     """The ``full`` mixer with a contiguous cache, qkv bias and SwiGLU, on
-    qwen1.5-4b's smoke config (the model functions take any LMConfig of the
-    ported subset; the registry does not list qwen yet); and the same with
+    qwen1.5-4b's smoke config, built as an ``LMConfig`` from the JAX one's
+    fields (the model functions take any LMConfig); and the same with
     learned positions, tied embeddings and a padded vocab whose padding
     columns are masked out of the logits."""
     jcfg = dataclasses.replace(jax_get_arch("qwen1.5-4b").smoke_config(), **variant)
@@ -266,7 +271,7 @@ def test_full_attention_arch_matches_jax(variant):
     tparams = params_from_jax(jax.device_get(jparams), device="cpu")
     rng = np.random.default_rng(8)
     toks = rng.integers(0, tcfg.vocab, (2, 10)).astype(np.int32)
-    _close(tm.forward(tparams, tcfg, _t(toks, torch.long)),
+    _close(tm.forward(tparams, tcfg, _t(toks, torch.long))[0],
            jm.forward(jparams, jcfg, jnp.asarray(toks))[0])
     jc, tc = jm.init_cache(jcfg, 2, 16), tm.init_cache(tcfg, 2, 16, device="cpu")
     jlog, jc, jlen = jm.prefill(jparams, jcfg, jnp.asarray(toks[:, :6]), jc)

@@ -2,8 +2,8 @@
 both packages on the same data, parameters and feeds, with the ``pallas``
 gather on both sides (JAX in interpret mode, the port on ``device="cpu"``,
 where the gather takes its kernel's plain version).  Also the sharded
-placements in one process, the port's device rule and the options that
-later slices bring."""
+placements in one process, the port's device rule and the elastic
+fit's need of a checkpoint directory."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -170,15 +170,6 @@ def test_sharded_placements_in_one_process_match_jax(slice_setup, placement):
                                    [h[key] for h in jhist if key in h], rtol=RTOL)
     np.testing.assert_allclose(tpipe.evaluate(tstate["params"], split="test"),
                                jpipe.evaluate(jstate["params"], split="test"), rtol=RTOL)
-
-
-@pytest.mark.parametrize("change", [
-    dict(gather="lm"),
-])
-def test_options_of_later_slices_raise(slice_setup, change):
-    series, sup, kw, jparams = slice_setup
-    with pytest.raises(NotImplementedError):
-        _torch_pipe(series, sup, kw, params_from_jax(jparams, device="cpu"), **change)
 
 
 def test_elastic_raises(slice_setup):
