@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's eight main paths through their user entry points, each at
+Drives the port's eleven main paths through their user entry points, each at
 the full width of a registered arch, with every kernel count set to 0 just
 before a path and read just after it:
 
@@ -31,7 +31,31 @@ before a path and read just after it:
   ``ServeEngine(..., ServeConfig(slots=8, max_len=1024, max_new_tokens=32))``
   serves 16 greedy requests with ``use_pallas_scan=True``, every RG-LRU scan
   through the CUDA ``linear_scan`` (18 launches per prefill group and per
-  decode step); one prefill group is run again through the plain scan;
+  decode step); one prefill group is run again through the plain scan; then
+  the same 16 requests through paged planes (block 16, the pool sized to the
+  live tokens; recurrentgemma's rec and swa state stays per lane), every odd
+  request sampled (temperature 0.7, top-k 50, top-p 0.9): the greedy lanes'
+  tokens must equal the contiguous run's, and the scan's launches again 18
+  per group and step;
+- the keyed sampler on the card: request keys, random bits and uniforms
+  bit-equal to the CPU's, and the tokens of [8, 151,936] rows (float32 and
+  bf16 logits; greedy, sampled and filtered lanes) equal to the CPU's;
+- qwen1.5-4b at full width (40 layers, d_model 2,560, 20 MHA heads of 128,
+  vocab 151,936, bf16; weights random from a seed, drawn into bf16) through
+  the serving launcher, ``repro_torch.launch.serve.main([...])``, 8 slots,
+  max_len 1,024, 16 requests of 32 new tokens: contiguous and paged
+  (``--block-size 16 --pool-blocks 272``, the live tokens), greedy and
+  sampled on the same seeds; paged tokens must equal contiguous in both
+  modes and the paged cache be at most 0.55 of the contiguous one;
+- the serving fleet: recurrentgemma-2b's smoke config (float32) at
+  temperature 0.7, ``--role fleet --planes 2`` (two worker processes the
+  launcher spawns, sharing ``cuda:0``, file mailboxes and heartbeats under
+  ``build/``); worker 1 is SIGKILLed once every request it holds has 8
+  tokens, the coordinator declares it dead after ``--hb-timeout 15`` and
+  re-prefills its requests on worker 0, and every request's tokens must
+  equal the launcher's single-engine run at the same seeds; the drill then
+  runs again at full width in the arch's bf16, its count of equal requests
+  (restored and not) recorded;
 - the measured-dispatch path: ``build_pipeline(..., gather="auto").fit()``
   for 5 steps at the ST-GNN width (its losses equal a ``gather="pallas"``
   run's on the same feed), ``diffusion_conv(impl="auto")`` at the forecast
@@ -125,8 +149,16 @@ before a path and read just after it:
   generated tokens decoded teacher-forced, ends at most twice as far from
   a float32 ``forward`` over the same tokens as a bf16 ``forward`` is.  (c) all nine new archs at their smoke
   configs, float32: 3 launcher steps each, then prefill + 4 decode steps
-  within 1e-4 of a teacher-forced forward.  No kernel runs on this path:
-  the four counts are set to 0 before it and must read 0 after it.
+  within 1e-4 of a teacher-forced forward.  The deepseek requests are then
+  served again through a paged plane (MLA latent pools of block 16, the
+  pool sized to the live tokens): every request ``ok``, 0 drops at decode,
+  its tokens against the contiguous run's (and where they differ, a second
+  contiguous run against the first: the bf16 MoE combine adds in no fixed
+  order), and one full-width MLA layer's paged decode bit-equal to its
+  contiguous decode.  No kernel runs on this path, nor on the sampler,
+  qwen1.5-4b and fleet paths (the launcher serves with the plain scan, as
+  the JAX launcher does; the fleet's workers are other processes): the four
+  counts are set to 0 before each and must read 0 after it.
 
 Phases: device (card name and power limit; TF32 off for matmuls and cuDNN);
 build (the CUDA kernels compiled from ``src/repro_torch``, one nvcc per
@@ -147,8 +179,13 @@ turns; linear_scan at every prefill group shape and at decode beside its
 launch floor, the same launch at [1, 1, 32]).
 
 Cuts: the LM training run's token stream is 196 tokens (68 windows of 129:
-one epoch of 6 steps of 8, 7 val windows); the deepseek serving cell cuts
-traffic only (16 requests, prompts of 128, 256 and 512 tokens).  The
+one epoch of 6 steps of 8, 7 val windows); the deepseek, qwen1.5-4b and
+fleet serving cells cut traffic only (16 requests, prompts of 128, 256 and
+512 tokens); the checked fleet drill serves the smoke config, whose float32
+is what makes it checkable: a restore computes the next token's logits by a
+prefill instead of a decode step, and in bf16 that other order of roundings
+can flip a near-tie draw (in the JAX package as in the port); the
+full-width bf16 drill beside it records how often.  The
 distributed phase trains on a pool of 160 train windows (every
 k-th one strictly inside each rank's shard, 5 batches of 16 a rank); the
 world-1 launcher run on 600 entries; the elastic processes on the
@@ -1017,36 +1054,57 @@ def rg_prompts():
     return [rng.integers(0, 256_000, int(n)).astype(np.int32) for n in lens]
 
 
-def serve_timed(eng, prompts):
-    """Submit ``prompts`` and run the engine to the end, each prefill group
-    and decode step timed on the host clock to its one device pull.
+class ServeTimer:
+    """Host-clock ms of every prefill group and decode step of every plane
+    while installed, each to its one device pull (class-level wraps, so the
+    planes of an engine the launcher builds are timed too); ``base`` is the
+    memory allocated at the first prefill: the weights and the cache."""
+
+    def __enter__(self):
+        from repro_torch.serve import plane
+
+        self.groups, self.steps, self._saved = [], [], []
+        for cls in (plane.InferencePlane, plane.PagedInferencePlane):
+            for name, timed in (("prefill_into", self._prefill), ("decode", self._decode)):
+                self._saved.append((cls, name, cls.__dict__[name]))
+                setattr(cls, name, timed(cls.__dict__[name]))
+        return self
+
+    def _prefill(self, fn):
+        def run(plane, slots, prompts, *a, **kw):
+            if not self.groups:
+                self.base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            out = fn(plane, slots, prompts, *a, **kw)
+            self.groups.append((prompts.shape, (time.perf_counter() - t0) * 1e3))
+            return out
+        return run
+
+    def _decode(self, fn):
+        def run(plane):
+            t0 = time.perf_counter()
+            out = fn(plane)
+            self.steps.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    def __exit__(self, *exc):
+        for cls, name, fn in self._saved:
+            setattr(cls, name, fn)
+
+
+def serve_timed(eng, prompts, submit=None):
+    """Submit ``prompts`` (``submit[i]``: request i's keyword overrides) and
+    run the engine to the end under a ``ServeTimer``.
     Returns (rids, out, groups [(shape, ms)], steps [ms], wall s)."""
-    plane = eng.planes[0]
-    groups, steps = [], []
-    prefill_into, decode = plane.prefill_into, plane.decode
-
-    def timed_prefill(slots, batch, **kw):
-        t0 = time.perf_counter()
-        out = prefill_into(slots, batch, **kw)  # ends in its one device pull
-        groups.append((batch.shape, (time.perf_counter() - t0) * 1e3))
-        return out
-
-    def timed_decode():
-        t0 = time.perf_counter()
-        out = decode()  # ends in its one device pull
-        steps.append((time.perf_counter() - t0) * 1e3)
-        return out
-
-    plane.prefill_into, plane.decode = timed_prefill, timed_decode
-    try:
-        rids = [eng.submit(p) for p in prompts]
+    with ServeTimer() as timer:
+        rids = [eng.submit(p, **(submit[i] if submit else {}))
+                for i, p in enumerate(prompts)]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = eng.run()
         wall = time.perf_counter() - t0
-    finally:
-        plane.prefill_into, plane.decode = prefill_into, decode
-    return rids, out, groups, steps, wall
+    return rids, out, timer.groups, timer.steps, wall
 
 
 def phase_serve(cfg, params):
@@ -1219,6 +1277,307 @@ def phase_serve_times(cfg, eng, groups, steps, wall, n_tok, launches, err) -> di
 
 def profile_decode(eng) -> None:
     profile_step("decode step", eng.planes[0].decode)
+
+
+# ------------------------------------------------ paged and sampled serving
+RG_BLOCK = 16
+# the sampled lanes' contract: temperature, top-k, top-p (the launcher's flags)
+SAMPLED = {"temperature": 0.7, "top_k": 50, "top_p": 0.9}
+
+
+def pool_for(slots: int, longest_prompt: int, new_tokens: int, block: int) -> int:
+    """Usable blocks for ``slots`` live lanes of the longest request: the
+    pool sized to the live tokens, not to ``max_len``."""
+    return slots * -(-(longest_prompt + new_tokens) // block)
+
+
+def phase_serve_paged(cfg, eng, greedy_out, greedy_rids):
+    """(b) the same 16 prompts through paged planes (block 16, the pool sized
+    to the live tokens; recurrentgemma has no paged leaves, so the pool
+    holds only its per-lane rec and swa state), every odd request sampled
+    (temperature 0.7, top-k 50, top-p 0.9): the greedy lanes' tokens must
+    equal the contiguous greedy run's.  Returns (groups, steps)."""
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    prompts = rg_prompts()
+    pool = pool_for(RG_SLOTS, max(RG_PROMPT_LENS), RG_NEW_TOKENS, RG_BLOCK)
+    peng = ServeEngine(eng.planes[0].params, cfg, ServeConfig(
+        slots=RG_SLOTS, max_len=RG_MAX_LEN, max_new_tokens=RG_NEW_TOKENS,
+        block_size=RG_BLOCK, pool_blocks=pool), planes=1)
+    submit = [dict(SAMPLED, seed=SEED + i) if i % 2 else {} for i in range(len(prompts))]
+    rids, out, groups, steps, wall = serve_timed(peng, prompts, submit)
+    statuses = [peng.router.done[r].status for r in rids]
+    greedy_same = [out[r] == greedy_out[g] for i, (r, g) in
+                   enumerate(zip(rids, greedy_rids)) if i % 2 == 0]
+    sampled_moved = [out[r] != greedy_out[g] for i, (r, g) in
+                     enumerate(zip(rids, greedy_rids)) if i % 2]
+    log(f"serve paged: block {RG_BLOCK}, pool {pool} blocks; cache "
+        f"{peng.planes[0].cache_bytes():,} B against {eng.planes[0].cache_bytes():,} B "
+        f"contiguous (no paged leaves: rec and swa state stay per lane); "
+        f"{len(groups)} prefill groups, {len(steps)} decode steps, decode step "
+        f"{statistics.median(steps):.3f} ms (median); greedy lanes equal to the "
+        f"contiguous greedy run: {sum(greedy_same)}/{len(greedy_same)}; sampled lanes "
+        f"(temperature {SAMPLED['temperature']}, top-k {SAMPLED['top_k']}, top-p "
+        f"{SAMPLED['top_p']}) that left the greedy tokens: "
+        f"{sum(sampled_moved)}/{len(sampled_moved)}")
+    check(statuses == ["ok"] * RG_REQUESTS, f"paged request statuses {statuses}")
+    check(all(greedy_same), "a greedy lane of the paged run differs from the "
+                            "contiguous greedy run")
+    check(any(sampled_moved), "no sampled lane left the greedy tokens")
+    check(all(0 <= t < cfg.vocab for r in rids for t in out[r]),
+          "a token outside the vocabulary")
+    check(peng.planes[0].pool.available == pool, "blocks left allocated after the run")
+    del peng
+    return groups, steps
+
+
+QW_ARCH = "qwen1.5-4b"
+QW_SLOTS, QW_MAX_LEN, QW_NEW_TOKENS, QW_REQUESTS = 8, 1024, 32, 16
+QW_PROMPT_LENS = (128, 256, 512)
+PAGED_MAX_SHARE = 0.55  # paged cache bytes at most this share of contiguous
+
+
+def phase_qwen() -> None:
+    """(a) qwen1.5-4b at full width through ``repro_torch.launch.serve``:
+    contiguous and paged (block 16, the pool sized to the live tokens),
+    greedy and sampled on the same seeds; paged tokens must equal the
+    contiguous ones in both modes."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import main as serve
+
+    cfg = get_arch(QW_ARCH).lm
+    pool = pool_for(QW_SLOTS, max(QW_PROMPT_LENS), QW_NEW_TOKENS, RG_BLOCK)
+    base = ["--arch", QW_ARCH, "--requests", str(QW_REQUESTS), "--slots", str(QW_SLOTS),
+            "--max-len", str(QW_MAX_LEN), "--max-new-tokens", str(QW_NEW_TOKENS),
+            "--prompt-lens", ",".join(map(str, QW_PROMPT_LENS)), "--seed", str(SEED)]
+    sampled = ["--temperature", str(SAMPLED["temperature"]), "--top-k",
+               str(SAMPLED["top_k"]), "--top-p", str(SAMPLED["top_p"]),
+               "--sample-seed", str(SEED + 7)]
+    paged = ["--block-size", str(RG_BLOCK), "--pool-blocks", str(pool)]
+    log(f"qwen serve: {QW_ARCH} at full width: {cfg.layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} MHA heads of {cfg.hd}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}, {cfg.dtype}; weights random from seed {SEED} drawn into "
+        f"{cfg.dtype}; CUTS (traffic only): {QW_REQUESTS} requests, prompts from "
+        f"{QW_PROMPT_LENS}, {QW_NEW_TOKENS} new tokens; flags {' '.join(base)}")
+    runs = {}
+    for mode, mflags in (("greedy", []), ("sampled", sampled)):
+        for layout, lflags in (("contiguous", []), ("paged", paged)):
+            flags = base + mflags + lflags
+            torch.cuda.reset_peak_memory_stats()
+            with ServeTimer() as timer:
+                res = serve(flags)
+            eng = res["engine"]
+            peak = torch.cuda.max_memory_allocated()
+            statuses = [r.status for r in eng.router.done.values()]
+            n_tok = sum(len(v) for v in res["results"].values())
+            runs[mode, layout] = dict(out=res["results"], bytes=eng.planes[0].cache_bytes())
+            log(f"qwen serve {mode} {layout}: cache {runs[mode, layout]['bytes']:,} B; "
+                f"{len(timer.groups)} prefill groups (median "
+                f"{statistics.median(ms for _, ms in timer.groups):.1f} ms), "
+                f"{len(timer.steps)} decode steps, decode step "
+                f"{statistics.median(timer.steps):.3f} ms (median; host clock to the "
+                f"token pull); {n_tok} tokens in {res['wall']:.3f} s "
+                f"({n_tok / res['wall']:.1f} tokens/s); peak {peak / 2**30:.2f} GiB "
+                f"from the draw on ({timer.base / 2**30:.2f} GiB allocated at the "
+                f"first prefill: weights and cache)")
+            check(statuses == ["ok"] * QW_REQUESTS, f"qwen {mode} {layout}: {statuses}")
+            check(all(len(v) == QW_NEW_TOKENS and all(0 <= t < cfg.vocab for t in v)
+                      for v in res["results"].values()), f"qwen {mode} {layout} tokens")
+            del res, eng
+            torch.cuda.empty_cache()
+    share = runs["greedy", "paged"]["bytes"] / runs["greedy", "contiguous"]["bytes"]
+    same = {m: runs[m, "paged"]["out"] == runs[m, "contiguous"]["out"]
+            for m in ("greedy", "sampled")}
+    moved = sum(runs["sampled", "contiguous"]["out"][r] != v
+                for r, v in runs["greedy", "contiguous"]["out"].items())
+    log(f"qwen serve: paged cache {share:.4f} of contiguous (at most "
+        f"{PAGED_MAX_SHARE}; {pool} blocks of {RG_BLOCK} + the null block); paged "
+        f"tokens equal to contiguous: greedy {same['greedy']}, sampled "
+        f"{same['sampled']}; sampled requests that left the greedy tokens: "
+        f"{moved}/{QW_REQUESTS}")
+    check(same["greedy"] and same["sampled"], "qwen paged tokens differ from contiguous")
+    check(share <= PAGED_MAX_SHARE, f"paged cache share {share:.4f}")
+    check(moved > 0, "the sampled run reproduced the greedy tokens")
+
+
+FL_PLANES, FL_HB_TIMEOUT = 2, 15.0  # the coordinator's heartbeat timeout, s
+FL_KILL_TOKENS = 8       # SIGKILL worker 1 once a request it holds has this many
+FL_TIMEOUT_S = 600       # the whole fleet run
+
+
+def fleet_drill(work: str, smoke: bool) -> dict:
+    """One drill of (c), on recurrentgemma-2b's smoke config (float32, the
+    JAX launcher's traffic: prompts of 4 to 16 tokens, 16 new tokens) or at
+    full width (the arch's bf16, the serving cell's traffic): the launcher's
+    single-engine run, then ``--role fleet --planes 2`` (two worker
+    processes sharing ``cuda:0``) with worker 1 SIGKILLed once a request it
+    holds has ``FL_KILL_TOKENS`` tokens.  Returns each request's equality
+    with the single engine's tokens."""
+    import signal
+    import threading
+
+    from repro_torch.launch.serve import main as serve
+    from repro_torch.serve import FleetEngine
+
+    label = "smoke, float32" if smoke else "full width, bf16"
+    flags = ["--arch", RG_ARCH, "--requests", str(RG_REQUESTS), "--slots", str(RG_SLOTS),
+             "--temperature", str(SAMPLED["temperature"]), "--sample-seed",
+             str(SEED + 11), "--seed", str(SEED)]
+    flags += ["--smoke"] if smoke else [
+        "--max-len", str(RG_MAX_LEN), "--max-new-tokens", str(RG_NEW_TOKENS),
+        "--prompt-lens", ",".join(map(str, RG_PROMPT_LENS))]
+    log(f"fleet ({label}): {RG_ARCH}, {FL_PLANES} worker processes sharing cuda:0; "
+        f"flags {' '.join(flags)}")
+    ref = serve(flags)
+    want = ref["results"]
+    log(f"fleet ({label}): the single-engine run: {sum(map(len, want.values()))} tokens "
+        f"in {ref['wall']:.3f} s")
+    del ref
+    torch.cuda.empty_cache()
+
+    fleet_dir = os.path.join(work, "fleet-smoke" if smoke else "fleet")
+    box: dict = {}
+    restored: list[int] = []
+    restore, tick = FleetEngine._restore, FleetEngine.tick
+
+    def recording(fleet, w):  # the requests a dead worker held
+        restored.extend(w.inflight)
+        return restore(fleet, w)
+
+    def seen(fleet):  # the coordinator, for the kill trigger below
+        box["fleet"] = fleet
+        return tick(fleet)
+
+    def run():
+        try:
+            box["res"] = serve(flags + ["--role", "fleet", "--planes", str(FL_PLANES),
+                                        "--fleet-dir", fleet_dir,
+                                        "--hb-timeout", str(FL_HB_TIMEOUT)])
+        except BaseException as e:  # re-raised by the main thread below
+            box["error"] = e
+        box["done_at"] = time.monotonic()
+
+    def held() -> list[int]:  # token counts of worker 1's requests, as reported
+        try:
+            return [len(req.out) for req, _ in
+                    list(box["fleet"].workers[1].inflight.values())]
+        except (KeyError, RuntimeError):  # not started, or changed mid-read
+            return []
+
+    FleetEngine._restore, FleetEngine.tick = recording, seen
+    coordinator = threading.Thread(target=run, daemon=True)
+    coordinator.start()
+    deadline = time.monotonic() + FL_TIMEOUT_S
+    counts: list[int] = []
+    try:
+        while coordinator.is_alive() and time.monotonic() < deadline:
+            counts = held()
+            if counts and max(counts) >= FL_KILL_TOKENS:
+                break
+            time.sleep(0.002)
+        check(counts and max(counts) >= FL_KILL_TOKENS,
+              f"worker 1 never held a request of {FL_KILL_TOKENS} tokens "
+              f"({box.get('error')})")
+        with open(os.path.join(fleet_dir, "w1_a0", "pid")) as f:
+            pid = int(f.read())
+        killed_at = time.monotonic()
+        os.kill(pid, signal.SIGKILL)
+        coordinator.join(timeout=FL_TIMEOUT_S)
+        check(not coordinator.is_alive(), "the fleet run did not finish")
+    finally:
+        FleetEngine._restore, FleetEngine.tick = restore, tick
+        if coordinator.is_alive():  # a failed drill: stop the workers it left
+            for wid in range(FL_PLANES):
+                try:
+                    with open(os.path.join(fleet_dir, f"w{wid}_a0", "pid")) as f:
+                        os.kill(int(f.read()), signal.SIGKILL)
+                except (OSError, ValueError):
+                    pass
+    if "error" in box:
+        raise box["error"]
+    res = box["res"]
+    fleet = res["fleet"]
+    verdict = res["dead_at"].get(1)
+    same = {r: res["results"][r] == want[r] for r in sorted(want)}
+    kept = [r for r in same if r not in restored]
+    log(f"fleet ({label}): worker 1 (pid {pid}) SIGKILLed holding {len(counts)} "
+        f"requests of {min(counts)}..{max(counts)} reported tokens; verdict "
+        f"{'%.3f s' % (verdict - killed_at) if verdict else 'never'} after the "
+        f"kill (heartbeat timeout {FL_HB_TIMEOUT} s); last restored request done "
+        f"{box['done_at'] - killed_at:.3f} s after the kill; served per worker "
+        f"{ {w: h.served for w, h in fleet.workers.items()} }; exit codes "
+        f"{res['exit_codes']}; requests equal to the single-engine run: "
+        f"{sum(same.values())}/{len(same)} (restored {sum(same[r] for r in restored)}/"
+        f"{len(restored)}, not restored {sum(same[r] for r in kept)}/{len(kept)}); "
+        f"fleet wall {res['wall']:.3f} s")
+    check(verdict is not None, "the coordinator never declared worker 1 dead")
+    check(restored, "worker 1 held no request when it died")
+    check([r.status for r in fleet.router.done.values()] == ["ok"] * RG_REQUESTS,
+          f"fleet statuses {[r.status for r in fleet.router.done.values()]}")
+    check(res["exit_codes"][0] == 0, f"worker 0 exit code {res['exit_codes'][0]}")
+    return same
+
+
+def phase_fleet(work: str) -> None:
+    """(c) the fleet drill on recurrentgemma-2b at temperature 0.7: on its
+    smoke config, float32, where every request's tokens must equal the
+    single engine's; then at full width in the arch's bf16, recorded: a
+    restore computes the next token's logits by a prefill instead of a
+    decode step, another order of bf16 roundings (up to a tenth on the
+    smoke config in bf16, in the JAX package as in the port:
+    tests/test_torch_serve_fleet.py::test_restored_logits_round_like_jax),
+    which can flip a near-tie draw (the count of equal requests, restored
+    and not, is logged, not checked)."""
+    t0 = time.perf_counter()
+    same = fleet_drill(work, smoke=True)
+    check(all(same.values()), "a request's tokens after the kill differ from the "
+                              "single engine's")
+    fleet_drill(work, smoke=False)
+    log(f"fleet: phase {time.perf_counter() - t0:.1f} s")
+
+
+def phase_sampler_card() -> None:
+    """(e) the keyed sampler on the card against the CPU: keys, bits and
+    uniforms bit-equal; the tokens of [8, 151,936] rows (qwen1.5-4b's
+    vocabulary) equal, float32 and bf16 logits, greedy, sampled and filtered
+    lanes; the sampler's time for a row of 8 sampled lanes."""
+    from repro_torch.serve import keyed_sample, sampling, threefry
+
+    rng = np.random.default_rng(SEED + 13)
+    n = 4096
+    idx = [rng.integers(0, 2**32, n), rng.integers(0, 2**31, n), rng.integers(0, 4096, n)]
+    idx[0][:2] = (2**32 - 1, 2**32 - 2)
+    keys = {d: sampling.request_key(*(torch.as_tensor(a, device=d) for a in idx))
+            for d in ("cpu", "cuda")}
+    keys_equal = all(torch.equal(a, b.cpu()) for a, b in zip(keys["cpu"], keys["cuda"]))
+    sub = tuple(k[:64] for k in keys["cuda"]), tuple(k[:64] for k in keys["cpu"])
+    bits_equal = torch.equal(threefry.random_bits(sub[0], 151_936).cpu(),
+                             threefry.random_bits(sub[1], 151_936))
+    unif_equal = torch.equal(threefry.uniform(sub[0], 151_936).cpu(),
+                             threefry.uniform(sub[1], 151_936))
+    rows = (rng.integers(0, 1000, 8).astype(np.int32),
+            rng.integers(0, 2**32, 8, dtype=np.uint32),
+            rng.integers(1, 1024, 8).astype(np.int32),
+            np.array([0, 0.7, 0.7, 1.3, 0.7, 0.2, 1.0, 0.7], np.float32),
+            np.array([0, 0, 50, 0, 50, 10, 0, 1], np.int32),
+            np.array([1, 1, 0.9, 0.9, 1, 0.5, 0.95, 1], np.float32))
+    toks_equal = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        logits = torch.as_tensor(rng.standard_normal((8, 151_936)).astype(np.float32)
+                                 * 3).to(dtype)
+        toks_equal[str(dtype)] = torch.equal(keyed_sample(logits.cuda(), *rows).cpu(),
+                                             keyed_sample(logits, *rows))
+    sampled = rows[:3] + (np.full(8, 0.7, np.float32),) + rows[4:]
+    logits = logits.cuda()
+    ms = median_ms(lambda: keyed_sample(logits, *sampled), reps=5)
+    greedy_ms = median_ms(lambda: keyed_sample(logits, *rows[:3], np.zeros(8, np.float32),
+                                               *rows[4:]), reps=5)
+    log(f"sampler: {n} request keys CUDA vs CPU bit-equal {keys_equal}; random bits and "
+        f"uniforms of 64 x 151,936 bit-equal {bits_equal} / {unif_equal}; tokens of "
+        f"[8, 151,936] rows equal {toks_equal}; keyed_sample of 8 sampled lanes "
+        f"{ms:.3f} ms, of 8 greedy lanes {greedy_ms:.3f} ms (CUDA events, median of 5)")
+    check(keys_equal and bits_equal and unif_equal, "threefry differs between CUDA and CPU")
+    check(all(toks_equal.values()), f"sampled tokens differ between CUDA and CPU {toks_equal}")
 
 
 # ------------------------------------------------------- flash attention
@@ -2454,8 +2813,113 @@ def phase_lm_serve(profile: bool) -> None:
     ds_check_lane(eng.planes[0].params, cfg, prompt, gen, served)
     if profile:
         profile_step(f"{DS_ARCH} decode step", eng.planes[0].decode)
-    del eng, records
+    del records
     torch.cuda.empty_cache()
+    ds_serve_paged(cfg, eng, prompts, out, rids, peak)
+    del eng
+    torch.cuda.empty_cache()
+
+
+def ds_serve_paged(cfg, eng, prompts, out, rids, contiguous_peak) -> None:
+    """(d) the same 16 requests through a paged plane (MLA latent pools of
+    block 16, the pool sized to the live tokens), on the engine's weights:
+    every request ``ok`` and 0 drops at decode; cache bytes and peak beside
+    the contiguous run's; tokens against the contiguous run's, and where
+    they differ, a second contiguous run against the first (the bf16 MoE
+    combine is an ``index_add`` in no fixed order on the card).  Then one
+    full-width MLA layer's paged decode held bit-equal to its contiguous
+    decode."""
+    from repro_torch.models.lm import moe
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    params = eng.planes[0].params
+    pool = pool_for(DS_SLOTS, max(DS_PROMPT_LENS), DS_NEW_TOKENS, RG_BLOCK)
+    decode_drops = []
+    dispatch = moe._dispatch_indices
+
+    def counting(top_ix, n_experts, capacity):
+        slot_src = dispatch(top_ix, n_experts, capacity)
+        if top_ix.shape[0] == DS_SLOTS:
+            decode_drops.append(top_ix.numel() - (slot_src < top_ix.numel()).sum())
+        return slot_src
+
+    runs = {}
+    for label, extra in (("paged", dict(block_size=RG_BLOCK, pool_blocks=pool)),
+                         ("contiguous again", {})):
+        torch.cuda.reset_peak_memory_stats()
+        e = ServeEngine(params, cfg, ServeConfig(slots=DS_SLOTS, max_len=DS_MAX_LEN,
+                                                 max_new_tokens=DS_NEW_TOKENS, **extra),
+                        planes=1, device="cuda")
+        moe._dispatch_indices = counting
+        try:
+            r2, o2, groups, steps, wall = serve_timed(e, prompts)
+        finally:
+            moe._dispatch_indices = dispatch
+        statuses = [e.router.done[r].status for r in r2]
+        runs[label] = [o2[r] for r in r2]
+        log(f"LM serve {label}: cache {e.planes[0].cache_bytes():,} B against "
+            f"{eng.planes[0].cache_bytes():,} B contiguous; decode step "
+            f"{statistics.median(steps):.2f} ms (median of {len(steps)}); "
+            f"{sum(map(len, runs[label])) / wall:.1f} tokens/s; peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (the contiguous run "
+            f"{contiguous_peak / 2**30:.2f} GiB from the draw on)")
+        check(statuses == ["ok"] * DS_REQUESTS, f"{label} request statuses {statuses}")
+        check(int(sum(int(d) for d in decode_drops)) == 0,
+              f"{label}: a decode step dropped MoE assignments")
+        del e
+        torch.cuda.empty_cache()
+        first = [out[r] for r in rids]
+        if label == "paged":
+            same = sum(a == b for a, b in zip(runs[label], first))
+            log(f"LM serve: paged tokens equal to the contiguous run's: "
+                f"{same}/{DS_REQUESTS} requests")
+            if same == DS_REQUESTS:
+                break
+        else:
+            again = sum(a == b for a, b in zip(runs[label], first))
+            log(f"LM serve: a second contiguous run equal to the first: "
+                f"{again}/{DS_REQUESTS} requests (the MoE combine's atomics)")
+    ds_mla_layer_paged(cfg, params)
+
+
+def ds_mla_layer_paged(cfg, params) -> None:
+    """Layer 0's absorbed MLA decode at full width (kv_lora_rank 512, rope
+    64, 16 heads) on 8 lanes of random bf16 latents at lengths up to 1,023:
+    through a paged pool (block 16, shuffled blocks, a retired lane on the
+    null block) it must give the contiguous decode's output and latents bit
+    for bit."""
+    from repro_torch.models.lm import mla
+    from repro_torch.tree import tree_map
+
+    m, b, s, bs = cfg.mla, DS_SLOTS, DS_MAX_LEN, RG_BLOCK
+    p = tree_map(lambda t: t[0], params["stages"][0]["sub0"]["attn"])
+    g = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    dt = getattr(torch, cfg.dtype)
+    ckv = torch.randn(b, s, m.kv_lora_rank, device="cuda", generator=g).to(dt)
+    kpe = torch.randn(b, s, m.qk_rope_head_dim, device="cuda", generator=g).to(dt)
+    x = torch.randn(b, 1, cfg.d_model, device="cuda", generator=g).to(dt)
+    lengths = torch.randint(0, s - 1, (b,), device="cuda", generator=g)
+    lengths[-1] = 0
+    nblk = s // bs
+    perm = 1 + torch.randperm(b * nblk, device="cuda", generator=g)
+    tables = perm.reshape(b, nblk)
+    tables[-1] = 0  # a retired lane: all-null table, length 0
+    ckv_pool = torch.zeros(1 + b * nblk, bs, m.kv_lora_rank, device="cuda", dtype=dt)
+    kpe_pool = torch.zeros(1 + b * nblk, bs, m.qk_rope_head_dim, device="cuda", dtype=dt)
+    ckv_pool[tables[:-1]] = ckv[:-1].reshape(b - 1, nblk, bs, -1)
+    kpe_pool[tables[:-1]] = kpe[:-1].reshape(b - 1, nblk, bs, -1)
+    with torch.no_grad():
+        y, c2, k2 = mla.mla_decode(p, cfg, x, ckv.clone(), kpe.clone(), lengths)
+        yp, cp, kp = mla.mla_decode(p, cfg, x, ckv_pool, kpe_pool, lengths,
+                                    paged=(tables, bs, s))
+    torch.cuda.synchronize()
+    same_y = torch.equal(yp[:-1], y[:-1])
+    same_c = all(torch.equal(cp[tables[i]].reshape(s, -1), c2[i]) for i in range(b - 1))
+    same_k = all(torch.equal(kp[tables[i]].reshape(s, -1), k2[i]) for i in range(b - 1))
+    log(f"LM serve: one full-width MLA layer, paged (block {bs}, shuffled blocks) against "
+        f"contiguous decode at lengths {lengths.tolist()}: output bit-equal {same_y}, "
+        f"latent pools bit-equal {same_c} / {same_k}")
+    check(same_y and same_c and same_k, "paged MLA decode differs from contiguous")
 
 
 def ds_check_lane(params, cfg, prompt, gen, served) -> None:
@@ -2630,6 +3094,17 @@ def main() -> int:
     check(scan_launches == expected, "linear_scan launches do not match 18 per "
                                      "prefill group and per decode step")
     del rg_params  # the engine keeps its compute-dtype copy
+    # (b) the same requests paged, odd ones sampled: the count from 0 again.
+    linear_scan.launches = 0
+    p_groups, p_steps = phase_serve_paged(rg_cfg, eng, out, list(range(RG_REQUESTS)))
+    paged_launches = linear_scan.launches
+    expected = n_rec * (len(p_groups) + len(p_steps))
+    log(f"serving path launches, paged run: linear_scan {paged_launches} ({n_rec} x "
+        f"({len(p_groups)} prefill groups + {len(p_steps)} decode steps) = {expected} "
+        f"expected)")
+    check(paged_launches == expected, "linear_scan launches of the paged run do not "
+                                      "match 18 per prefill group and per decode step")
+    scan_launches += paged_launches
     rg_compare_plain(rg_cfg, eng, groups)
     scan_err = phase_scan_kernel(rg_cfg, groups)
     kernels.append(phase_serve_times(rg_cfg, eng, groups, steps, wall, n_tok,
@@ -2640,6 +3115,24 @@ def main() -> int:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del eng
     torch.cuda.empty_cache()
+
+    # The sampler, qwen1.5-4b through the serving launcher and the fleet
+    # drill: counts from 0 just before each, read just after; none of them
+    # runs a kernel in this process (the launcher serves with the plain
+    # scan, as the JAX launcher does; the fleet's workers are processes).
+    counters = (window_gather, hop_project, linear_scan, flash_attention)
+    with tempfile.TemporaryDirectory(prefix="fleet-", dir=os.path.join(ROOT, "build")) as work:
+        for label, run in (("sampler", phase_sampler_card), ("qwen serve", phase_qwen),
+                           ("fleet", lambda: phase_fleet(work))):
+            for kernel in counters:
+                kernel.launches = 0
+            t0 = time.perf_counter()
+            run()
+            counts = {k.__name__: k.launches for k in counters}
+            log(f"{label} path launches: {counts} (0 expected); phase "
+                f"{time.perf_counter() - t0:.1f} s")
+            check(not any(counts.values()), f"a kernel launched on the {label} path")
+            torch.cuda.empty_cache()
 
     flash_err = phase_flash_kernel(rg_cfg)
     # The measured-dispatch path: tuned, then every count from 0, the path

@@ -292,6 +292,10 @@ def register_op(spec: OpSpec) -> OpSpec:
     return spec
 
 
+def registered_ops() -> tuple[str, ...]:
+    return tuple(_OPS)
+
+
 # ------------------------------------------------------------------- tuning
 
 

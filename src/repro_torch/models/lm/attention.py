@@ -11,6 +11,7 @@ chunks are Python loops here.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -142,3 +143,41 @@ def decode_attention(q1, k_cache, v_cache, length, *, window: int | None = None)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", probs.to(v_cache.dtype), v_cache)
     return out.reshape(b, 1, h, d)
+
+
+class PagedTables(NamedTuple):
+    """A paged decode step's block tables: ``tables`` ``[B, max_blocks]``
+    (each lane's logical blocks to physical pool blocks), ``block_size``,
+    ``max_len`` to cut each gathered view to, and ``where``: each lane's
+    (physical block, offset) for the step's new token, computed once for
+    every layer."""
+
+    tables: torch.Tensor
+    block_size: int
+    max_len: int
+    where: tuple
+
+
+def paged_tables(paged, lengths) -> PagedTables:
+    """``paged`` as given to ``decode_step`` / ``mla_decode``, ``(tables,
+    block_size, max_len)``, with the new token's write positions for
+    ``lengths``.  Retired lanes have all-null tables and length 0, so their
+    writes land in the null block 0."""
+    if isinstance(paged, PagedTables):
+        return paged
+    tables, bs, max_len = paged
+    rows = torch.arange(tables.shape[0], device=tables.device)
+    return PagedTables(tables, bs, max_len, (tables[rows, lengths // bs], lengths % bs))
+
+
+def paged_view(pool, paged: PagedTables):
+    """One layer's per-lane view ``[B, max_len, ...]`` of a block pool
+    through the block tables, laid out as a contiguous cache line is."""
+    b = paged.tables.shape[0]
+    view = pool[paged.tables].reshape((b, -1) + tuple(pool.shape[2:]))
+    return view[:, :paged.max_len].contiguous()
+
+
+def paged_write(pool, paged: PagedTables, new) -> None:
+    """Write each lane's new token row at its (physical block, offset)."""
+    pool[paged.where] = new.to(pool.dtype)

@@ -9,8 +9,8 @@ uses the *absorbed* form: q_nope is folded through W_uk into the latent
 space, scores are taken against the cached ``c_kv`` directly, and W_uv is
 applied to the attended latent, so a token costs ``kv_lora_rank + rope_dim``
 (576) cache entries instead of ``2·H·D``.  As in the JAX package; decode
-writes the given contiguous cache in place.  Paged pools wait for the paged
-plane.
+writes the given cache in place, a contiguous line per lane or a paged pool
+of blocks read through block tables.
 """
 from __future__ import annotations
 
@@ -18,7 +18,8 @@ import math
 
 import torch
 
-from repro_torch.models.lm.attention import NEG_INF, blockwise_attention, full_attention
+from repro_torch.models.lm.attention import (NEG_INF, blockwise_attention, full_attention,
+                                              paged_tables, paged_view, paged_write)
 from repro_torch.models.lm.config import LMConfig
 from repro_torch.models.lm.layers import Draw, apply_rope, init_linear, linear, rms_norm
 
@@ -81,22 +82,30 @@ def mla_decode(p, cfg: LMConfig, x1, ckv_cache, kpe_cache, lengths, *, paged=Non
     """Absorbed one-token decode.  x1: [B, 1, d]; caches: [B, S_max, r] /
     [B, S_max, dr], written in place at ``lengths``.
 
-    Returns (y [B, 1, d], ckv_cache, kpe_cache).  ``paged`` (the JAX
-    package's block-table pools) raises until the paged plane is ported.
+    Returns (y [B, 1, d], ckv_cache, kpe_cache).  ``paged``: ``(tables,
+    block_size, max_len)`` when the caches are paged pools ``[num_blocks,
+    block_size, r]``: the new latent is written at its (physical block,
+    offset) and attention runs over the block-table gathered view, cut to
+    ``max_len``; the pools are returned.
     """
-    if paged is not None:
-        raise NotImplementedError(
-            "paged MLA caches are not ported yet: they arrive with the paged "
-            "plane (ROADMAP.md queue 1, item 7)")
     m = cfg.mla
     b = x1.shape[0]
     pos = lengths[:, None]  # [B,1] absolute position of the new token
     qn, qr = _project_q(p, cfg, x1, pos)
     c_new, kpe_new = _project_ckv(p, cfg, x1, pos)
-    rows = torch.arange(b, device=x1.device)
-    ckv_cache[rows, lengths] = c_new[:, 0].to(ckv_cache.dtype)
-    kpe_cache[rows, lengths] = kpe_new[:, 0].to(kpe_cache.dtype)
-    ckv, kpe = ckv_cache, kpe_cache
+    if paged is None:
+        rows = torch.arange(b, device=x1.device)
+        ckv_cache[rows, lengths] = c_new[:, 0].to(ckv_cache.dtype)
+        kpe_cache[rows, lengths] = kpe_new[:, 0].to(kpe_cache.dtype)
+        ckv, kpe = ckv_cache, kpe_cache
+    else:
+        paged = paged_tables(paged, lengths)
+        paged_write(ckv_cache, paged, c_new[:, 0])
+        paged_write(kpe_cache, paged, kpe_new[:, 0])
+        # positions past lengths are masked below, so stale block tails
+        # cannot contribute
+        ckv = paged_view(ckv_cache, paged)
+        kpe = paged_view(kpe_cache, paged)
 
     # Absorb W_uk: q_lat[h] = W_uk[h]^T q_nope[h] -> score against c_kv directly.
     wukv = p["wukv"]["w"].reshape(m.kv_lora_rank, cfg.n_heads,

@@ -9,7 +9,11 @@ Block spec = (mixer, ffn):
     mixer ∈ full | swa | mla | rec | rwkv      ffn ∈ dense | moe | rwkv
 Examples: grok = ("full","moe")×64; deepseek = ("mla","dense") + ("mla","moe")×26;
 recurrentgemma = [("rec","dense"),("rec","dense"),("swa","dense")]×8 + 2 rec.
-Paged caches wait for the paged plane.
+
+Paged caches (``init_paged_cache``) turn the seq-dim leaves (full-attention
+k/v, MLA latents) into per-layer pools of fixed-size blocks shared by every
+lane through per-lane block tables; ``decode_step(..., paged=...)`` writes
+and reads them through the tables.
 
 Caches are updated in place: where the JAX functions return a new cache
 pytree, these write the one they are given (it is also returned), so a
@@ -35,6 +39,9 @@ from repro_torch.models.lm.attention import (
     blockwise_attention,
     decode_attention,
     full_attention,
+    paged_tables,
+    paged_view,
+    paged_write,
 )
 from repro_torch.models.lm.config import LMConfig
 from repro_torch.models.lm.layers import (apply_rope, init_linear, init_mlp,
@@ -190,9 +197,15 @@ def compute_copy(params, cfg: LMConfig, device: str | torch.device = "cuda"):
 
 # -------------------------------------------------------------------- mixers
 def _attn_mixer(p, cfg: LMConfig, spec: LayerSpec, x, positions, *, mode,
-                cache=None, lengths=None):
+                cache=None, lengths=None, paged=None):
     """Returns (out, cache).  In decode and prefill the given cache is
-    written in place."""
+    written in place.
+
+    ``paged``: the ``PagedTables`` of a decode step against a paged pool
+    (``init_paged_cache``; see ``decode_step``).  Applies to seq-dim caches
+    only (full-attention k/v, MLA ckv/kpe); swa rings and recurrent state
+    stay per lane.
+    """
     b, s, _ = x.shape
     hd = cfg.hd
     window = cfg.window if spec.mixer == "swa" else None
@@ -200,7 +213,7 @@ def _attn_mixer(p, cfg: LMConfig, spec: LayerSpec, x, positions, *, mode,
     if spec.mixer == "mla":
         if mode == "decode":
             y, ckv, kpe = mla_decode(p["attn"], cfg, x, cache["ckv"], cache["kpe"],
-                                     lengths)
+                                     lengths, paged=paged)
             return y, {"ckv": ckv, "kpe": kpe}
         y, (c_kv, k_pe) = mla_attention(p["attn"], cfg, x, positions,
                                         blockwise=s > BLOCKWISE_THRESHOLD)
@@ -227,6 +240,15 @@ def _attn_mixer(p, cfg: LMConfig, spec: LayerSpec, x, positions, *, mode,
             vc[rows, slot] = v[:, 0].to(vc.dtype)
             n_valid = torch.clamp(lengths + 1, max=window)
             out = _ring_decode(q, kc, vc, n_valid)
+        elif paged is not None:
+            # write the token's k/v at (physical block, offset), then attend
+            # over this layer's gathered view: the transient is one layer's
+            # [B, max_len] view, never the whole pool.  Positions >= lengths
+            # + 1 (block tails, null-block rows of dead lanes) are masked.
+            paged_write(kc, paged, k[:, 0])
+            paged_write(vc, paged, v[:, 0])
+            out = decode_attention(q, paged_view(kc, paged), paged_view(vc, paged),
+                                   lengths + 1)
         else:
             kc[rows, lengths] = k[:, 0].to(kc.dtype)
             vc[rows, lengths] = v[:, 0].to(vc.dtype)
@@ -273,7 +295,7 @@ def _ring_decode(q1, k_ring, v_ring, n_valid):
 
 # --------------------------------------------------------------------- layers
 def _layer_apply(p, cfg: LMConfig, spec: LayerSpec, x, positions, *, mode,
-                 cache=None, lengths=None):
+                 cache=None, lengths=None, paged=None):
     """One block.  Returns (x, new_cache, aux_loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, p["norm1"].to(x.dtype), cfg.norm_eps)
@@ -285,7 +307,7 @@ def _layer_apply(p, cfg: LMConfig, spec: LayerSpec, x, positions, *, mode,
                                         cache=None if mode == "train" else cache["tm"])
     else:
         out, new_cache = _attn_mixer(p, cfg, spec, h, positions, mode=mode,
-                                     cache=cache, lengths=lengths)
+                                     cache=cache, lengths=lengths, paged=paged)
     x = x + out
     h2 = rms_norm(x, p["norm2"].to(x.dtype), cfg.norm_eps)
     if spec.ffn == "rwkv":
@@ -305,7 +327,7 @@ def _write(dst: torch.Tensor, src: torch.Tensor) -> None:
 
 
 def _run_stages(params, cfg: LMConfig, x, positions, *, mode, caches=None,
-                lengths=None, remat=False):
+                lengths=None, remat=False, paged=None):
     """Each stage's repeats in order; a layer's new cache is written into its
     slice of the stacked cache.  Returns (x, caches, aux_total): the sum of
     the layers' auxiliary losses (the MoE load-balancing terms), float32.
@@ -327,7 +349,8 @@ def _run_stages(params, cfg: LMConfig, x, positions, *, mode, caches=None,
                 for i, sp in enumerate(specs):
                     sub_c = None if lc is None else lc[f"sub{i}"]
                     x, nc, aux = _layer_apply(lp[f"sub{i}"], cfg, sp, x, positions,
-                                              mode=mode, cache=sub_c, lengths=lengths)
+                                              mode=mode, cache=sub_c, lengths=lengths,
+                                              paged=paged)
                     if sub_c is not None:
                         tree_map(_write, sub_c, nc)
                     aux_sum = aux_sum + aux
@@ -412,33 +435,47 @@ def loss_fn(params, cfg: LMConfig, tokens_in, labels, *, prefix_embeds=None):
 
 
 # -------------------------------------------------------------------- serving
+def _token_leaves(cfg: LMConfig, spec: LayerSpec, lead: tuple, dev: torch.device):
+    """The attention leaves of one stage slot, a row per cached token:
+    ``lead`` is ``(repeats, batch, positions)`` for per-lane lines and
+    ``(repeats, num_blocks, block_size)`` for a paged pool."""
+    cdtype = _dtype(cfg.dtype)
+    if spec.mixer == "mla":
+        m = cfg.mla
+        return {"ckv": torch.zeros(lead + (m.kv_lora_rank,), dtype=cdtype, device=dev),
+                "kpe": torch.zeros(lead + (m.qk_rope_head_dim,), dtype=cdtype, device=dev)}
+    shape = lead + (cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=cdtype, device=dev),
+            "v": torch.zeros(shape, dtype=cdtype, device=dev)}
+
+
+def _lane_cache(cfg: LMConfig, spec: LayerSpec, repeats: int, batch: int,
+                max_len: int, dev: torch.device):
+    """One stage slot's per-lane cache leaves, ``[repeats, batch, ...]``."""
+    if spec.mixer in ("full", "mla"):
+        return _token_leaves(cfg, spec, (repeats, batch, max_len), dev)
+    if spec.mixer == "swa":
+        return _token_leaves(cfg, spec, (repeats, batch, min(cfg.window, max_len)), dev)
+    cdtype = _dtype(cfg.dtype)
+    if spec.mixer == "rwkv":
+        c = rwkv6.init_rwkv_cache(cfg, batch, cdtype, dev)
+    else:
+        c = rglru.init_rglru_cache(cfg, batch, cdtype, dev)
+    return tree_map(lambda v: v.expand((repeats,) + v.shape).contiguous(), c)
+
+
 def init_cache(cfg: LMConfig, batch: int, max_len: int,
                device: str | torch.device = "cuda"):
     """Cache tree mirroring the stage plan (stacked over repeats)."""
     dev = resolve_device(device)
-    cdtype = _dtype(cfg.dtype)
-    hd = cfg.hd
-
-    def one_layer(spec: LayerSpec, repeats: int):
-        if spec.mixer in ("full", "swa"):
-            s = max_len if spec.mixer == "full" else min(cfg.window, max_len)
-            shape = (repeats, batch, s, cfg.n_kv_heads, hd)
-            return {"k": torch.zeros(shape, dtype=cdtype, device=dev),
-                    "v": torch.zeros(shape, dtype=cdtype, device=dev)}
-        if spec.mixer == "mla":
-            m = cfg.mla
-            return {"ckv": torch.zeros((repeats, batch, max_len, m.kv_lora_rank),
-                                       dtype=cdtype, device=dev),
-                    "kpe": torch.zeros((repeats, batch, max_len, m.qk_rope_head_dim),
-                                       dtype=cdtype, device=dev)}
-        if spec.mixer == "rwkv":
-            c = rwkv6.init_rwkv_cache(cfg, batch, cdtype, dev)
-        else:
-            c = rglru.init_rglru_cache(cfg, batch, cdtype, dev)
-        return tree_map(lambda v: v.expand((repeats,) + v.shape).contiguous(), c)
-
-    return [{f"sub{i}": one_layer(sp, repeats) for i, sp in enumerate(specs)}
+    return [{f"sub{i}": _lane_cache(cfg, sp, repeats, batch, max_len, dev)
+             for i, sp in enumerate(specs)}
             for specs, repeats in stage_plan(cfg)]
+
+
+def _put_lanes(big, small, slots):
+    big[:, torch.as_tensor(slots, dtype=torch.long, device=big.device)] = small.to(big.dtype)
+    return big
 
 
 def scatter_cache(cache, sub, slots):
@@ -450,12 +487,78 @@ def scatter_cache(cache, sub, slots):
     same tree with batch ``k`` (a batched-prefill output).  ``slots``: ``[k]``
     lane indices.  One indexed write per leaf.
     """
-    def put(big, small):
-        idx = torch.as_tensor(slots, dtype=torch.long, device=big.device)
-        big[:, idx] = small.to(big.dtype)
+    return tree_map(lambda big, small: _put_lanes(big, small, slots), cache, sub)
+
+
+# ------------------------------------------------------------ paged KV-cache
+def init_paged_cache(cfg: LMConfig, batch: int, max_len: int, *, num_blocks: int,
+                     block_size: int, device: str | torch.device = "cuda"):
+    """Paged cache pool: seq-dim leaves become shared block pools.
+
+    Full-attention k/v and MLA ckv/kpe leaves are ``[repeats, num_blocks,
+    block_size, ...]``: one pool per layer, shared by every lane through
+    per-lane block tables (``serve.blocks.BlockPool`` owns the allocation;
+    physical block 0 is the null block).  Per-lane state with no paged seq
+    dim (swa rings, RG-LRU / RWKV recurrent state) keeps the ``init_cache``
+    layout ``[repeats, batch, ...]``.
+    """
+    dev = resolve_device(device)
+
+    def one_layer(spec: LayerSpec, repeats: int):
+        if spec.mixer in ("full", "mla"):
+            return _token_leaves(cfg, spec, (repeats, num_blocks, block_size), dev)
+        return _lane_cache(cfg, spec, repeats, batch, max_len, dev)
+
+    return [{f"sub{i}": one_layer(sp, repeats) for i, sp in enumerate(specs)}
+            for specs, repeats in stage_plan(cfg)]
+
+
+def paged_cache_mask(cfg: LMConfig):
+    """Bool tree congruent with the cache: True at paged (seq-dim) leaves.
+
+    Decided per layer SPEC, not by shape: a swa ring whose window equals
+    ``max_len`` must still take the ring decode path, not the paged one.
+    """
+    def one_layer(spec: LayerSpec):
+        paged = spec.mixer in ("full", "mla")
+        return tree_map(lambda _: paged,
+                        _lane_cache(cfg, spec, 1, 1, 1, torch.device("meta")))
+
+    return [{f"sub{i}": one_layer(sp) for i, sp in enumerate(specs)}
+            for specs, _ in stage_plan(cfg)]
+
+
+def scatter_cache_paged(cache, sub, slots, phys, *, block_size: int, mask):
+    """Land a k-batch contiguous prefill cache in a paged pool, in place.
+
+    ``cache``: the pool from ``init_paged_cache``.  ``sub``: a contiguous
+    prefill cache with batch k.  ``slots``: ``[k]`` lane ids, used for the
+    per-lane (unpaged) leaves as in ``scatter_cache``.  ``phys``: ``[k, nb]``
+    physical blocks covering logical positions ``0..nb*block_size`` of each
+    lane (the prompt's blocks).  ``mask``: ``paged_cache_mask(cfg)``.
+
+    Paged leaves cut (or zero-pad) the sub line to ``nb`` blocks and write
+    them to their physical rows in one indexed write; positions past the
+    prompt inside the last block are zero (masked by the lane lengths until
+    decode overwrites them).
+    """
+    def put(is_paged, big, small):
+        if not is_paged:
+            return _put_lanes(big, small, slots)
+        small = small.to(big.dtype)
+        idx = torch.as_tensor(phys, dtype=torch.long, device=big.device)
+        r, k, s = small.shape[:3]
+        nb = idx.shape[1]
+        want = nb * block_size
+        if s > want:
+            small = small[:, :, :want]
+        elif s < want:
+            pad = small.new_zeros((r, k, want - s) + tuple(small.shape[3:]))
+            small = torch.cat([small, pad], dim=2)
+        big[:, idx] = small.reshape((r, k, nb, block_size) + tuple(small.shape[3:]))
         return big
 
-    return tree_map(put, cache, sub)
+    return tree_map(put, mask, cache, sub)
 
 
 def prefill(params, cfg: LMConfig, tokens, cache, *, prefix_embeds=None):
@@ -470,11 +573,22 @@ def prefill(params, cfg: LMConfig, tokens, cache, *, prefix_embeds=None):
     return logits, cache, lengths
 
 
-def decode_step(params, cfg: LMConfig, token, cache, lengths):
+def decode_step(params, cfg: LMConfig, token, cache, lengths, *, paged=None):
     """One decode step.  token: [B, 1], lengths: [B] -> (logits [B, V],
-    cache), the cache written in place."""
+    cache), the cache written in place.
+
+    ``paged``: ``(tables, block_size, max_len)`` when ``cache`` is a paged
+    pool from ``init_paged_cache``: the tables ``[B, max_blocks]`` map each
+    lane's logical blocks to physical pool blocks, and every layer writes and
+    reads through them.  Each layer's gathered view is cut to ``max_len``:
+    positions past it are never valid, so the function is JAX's (which takes
+    ``(tables, block_size)`` and attends over the uncut view), and the view
+    has the contiguous cache's shape at every block size.
+    """
     x, positions = embed_tokens(params, cfg, token, pos_offset=lengths)
+    if paged is not None:  # the write positions, once for every layer
+        paged = paged_tables(paged, lengths)
     x, cache, _ = _run_stages(params, cfg, x, positions, mode="decode",
-                              caches=cache, lengths=lengths)
+                              caches=cache, lengths=lengths, paged=paged)
     x = rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
     return logits_fn(params, cfg, x[:, 0]), cache

@@ -1,6 +1,7 @@
 """LR schedules.  A schedule takes an integer step and returns a float32
-0-d tensor on the CPU, which combines with tensors on any device.  (The JAX
-package's ``constant`` and ``linear_scaled_lr`` arrive with the launcher.)"""
+0-d tensor on the CPU, which combines with tensors on any device.
+``linear_scaled_lr`` is the linear LR scaling rule the paper's §5.3.3
+follow-up uses to offset large-global-batch MAE degradation."""
 from __future__ import annotations
 
 import math
@@ -16,3 +17,13 @@ def warmup_cosine(step, *, base_lr: float, warmup_steps: int, total_steps: int,
                        0.0, 1.0)
     cos = base_lr * (min_ratio + (1 - min_ratio) * 0.5 * (1 + torch.cos(math.pi * prog)))
     return torch.where(step < warmup_steps, warm, cos)
+
+
+def constant(step, *, base_lr: float, **_):
+    return torch.full_like(torch.as_tensor(step, dtype=torch.float32), base_lr)
+
+
+def linear_scaled_lr(base_lr: float, global_batch: int, base_batch: int,
+                     cap: float = 16.0) -> float:
+    """Linear LR scaling for large global batches, capped at ``cap``."""
+    return base_lr * min(global_batch / base_batch, cap)

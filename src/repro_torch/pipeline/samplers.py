@@ -90,6 +90,11 @@ class ShardAlignedBatchSampler(EvalFeeds):
         """Every window id ``feed(rank, e)`` can hold, for any epoch."""
         return self.rank_batches[rank].reshape(-1)
 
+    def epoch_rank(self, epoch: int, rank: int) -> np.ndarray:
+        """Transposed-argument alias of :meth:`feed` (the JAX package keeps
+        it for callers that predate the feed contract)."""
+        return self.feed(rank, epoch)
+
     def epoch(self, epoch: int) -> np.ndarray:
         return self.feed(0, epoch)
 

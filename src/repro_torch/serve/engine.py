@@ -8,10 +8,10 @@ step loop that moves requests between them:
              lanes (least-loaded plane first) → one batched decode step per
              plane with live lanes → retire budget/EOS/full/deadline lanes.
 
-Greedy output equals the reference ``repro_torch.serve.Server``'s: decode is
-per lane, so neither the prefill grouping nor the plane assignment may change
-what any request generates.  Planes are contiguous; a ``block_size`` (paged
-planes) raises until the paged plane is ported.
+Output equals the reference ``repro_torch.serve.Server``'s at any
+temperature: decode and the request-keyed draws (``serve.sampling``) are per
+lane pure functions of each request, so neither the prefill grouping, the
+plane assignment nor the cache layout may change what any request generates.
 """
 from __future__ import annotations
 
@@ -24,16 +24,21 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models.lm import model as lm
 from repro_torch.models.lm.config import LMConfig
-from repro_torch.serve.plane import InferencePlane
+from repro_torch.serve.plane import InferencePlane, PagedInferencePlane
 from repro_torch.serve.router import Router, ServeRequest
-from repro_torch.serve.server import ServeConfig
+from repro_torch.serve.server import ServeConfig, validate_request
 
 
 class ServeEngine:
     """Continuous-batching engine over one or more slot pools on one device.
 
     The engine makes the compute-dtype copy of the weights once, so its N
-    planes share one set of weight tensors.
+    planes share one set of weight tensors.  ``serve.block_size`` selects
+    the plane flavour: None builds contiguous ``InferencePlane`` pools; a
+    block size builds ``PagedInferencePlane`` pools, and admission accounts
+    pool BLOCKS (through ``Router.pop_group``'s block budget) on top of free
+    lanes, so a full pool backpressures at the router instead of running
+    the device out of memory in a prefill.
     """
 
     def __init__(self, params, cfg: LMConfig, serve: ServeConfig, *,
@@ -41,11 +46,8 @@ class ServeEngine:
                  prefill_token_budget: int | None = None,
                  clock: Callable[[], float] = time.monotonic,
                  device: str | torch.device = "cuda"):
-        if serve.block_size is not None:
-            raise NotImplementedError(
-                "paged planes (ServeConfig.block_size) are not ported yet "
-                "(ROADMAP.md queue 1, item 7)")
         self.serve = serve
+        self.paged = serve.block_size is not None
         #: default backpressure bound: 4 waves of the whole fleet
         if queue_limit is None:
             queue_limit = 4 * planes * serve.slots
@@ -54,7 +56,8 @@ class ServeEngine:
                                      or max(serve.max_len, 512))
         device = resolve_device(device)
         shared = lm.compute_copy(params, cfg, device)
-        self.planes = [InferencePlane(shared, cfg, serve, mesh=mesh, device=device)
+        plane_cls = PagedInferencePlane if self.paged else InferencePlane
+        self.planes = [plane_cls(shared, cfg, serve, mesh=mesh, device=device)
                        for _ in range(planes)]
         self.active: list[list[ServeRequest | None]] = [
             [None] * serve.slots for _ in self.planes]
@@ -64,8 +67,26 @@ class ServeEngine:
                deadline_s: float | None = None, seed: int | None = None,
                temperature: float | None = None, top_k: int | None = None,
                top_p: float | None = None, rid: int | None = None) -> int:
-        """Admit a request (raises ``Backpressure`` / ``ValueError``, and
-        ``NotImplementedError`` for a sampled request)."""
+        """Admit a request (raises ``Backpressure`` / ``ValueError``).
+
+        ``seed``/``temperature``/``top_k``/``top_p`` override the config's
+        sampling defaults for this request; ``rid`` pins the request id (the
+        fleet worker passes the COORDINATOR's rid so keyed draws survive
+        re-placement).  Paged pools add one admission rule: a request whose
+        lifetime block cost exceeds the POOL's capacity can never run and is
+        rejected with ``ValueError`` here (a full-but-draining pool is the
+        router's block accounting's business instead).
+        """
+        if self.paged:
+            prompt = np.asarray(prompt_tokens, np.int32).reshape(-1)
+            budget = validate_request(self.serve, prompt, max_new_tokens)
+            plane = self.planes[0]
+            need = plane.block_cost(prompt.size, budget)
+            if need > plane.pool.num_blocks:
+                raise ValueError(
+                    f"request needs {need} blocks; the pool only has "
+                    f"{plane.pool.num_blocks}: raise pool_blocks or shorten "
+                    f"the request")
         return self.router.submit(prompt_tokens, max_new_tokens=max_new_tokens,
                                   deadline_s=deadline_s, seed=seed,
                                   temperature=temperature, top_k=top_k,
@@ -96,28 +117,46 @@ class ServeEngine:
                 if req is not None and self.router.past_deadline(req):
                     self._retire(pi, slot, req, status="timeout")
 
-        # admission: batched prefill into free lanes, least-loaded plane first
+        # admission: batched prefill into free lanes, least-loaded plane
+        # first; a plane whose BLOCK pool can't take the group's leader is
+        # skipped (another plane may have the blocks)
         while self.router.queue:
             order = sorted(((len(p.free_slots()), pi)
                             for pi, p in enumerate(self.planes)), reverse=True)
-            n_free, pi = order[0]
-            if n_free == 0:
-                break
-            plane = self.planes[pi]
-            group = self.router.pop_group(n_free, self.prefill_token_budget)
-            slots = plane.free_slots()[:len(group)]
-            prompts = np.stack([r.prompt for r in group])
-            toks = plane.prefill_into(slots, prompts,
-                                      rids=[r.rid for r in group],
-                                      samples=[r.sample for r in group])
-            for req, slot, tok in zip(group, slots, toks):
-                req.out.append(int(tok))
-                if self._should_retire(req, int(tok)):
-                    # retired AT the prefill token (budget 1 / EOS first):
-                    # the lane frees immediately for this same step
-                    self._retire(pi, slot, req)
+            popped = False
+            for n_free, pi in order:
+                if n_free == 0:
+                    continue
+                plane = self.planes[pi]
+                if self.paged:
+                    group = self.router.pop_group(
+                        n_free, self.prefill_token_budget,
+                        block_budget=plane.free_blocks(),
+                        block_cost=lambda r, p=plane: p.block_cost(
+                            r.prompt.size, r.budget))
                 else:
-                    self.active[pi][slot] = req
+                    group = self.router.pop_group(n_free,
+                                                  self.prefill_token_budget)
+                if not group:
+                    continue
+                slots = plane.free_slots()[:len(group)]
+                prompts = np.stack([r.prompt for r in group])
+                toks = plane.prefill_into(slots, prompts,
+                                          budgets=[r.budget for r in group],
+                                          rids=[r.rid for r in group],
+                                          samples=[r.sample for r in group])
+                for req, slot, tok in zip(group, slots, toks):
+                    req.out.append(int(tok))
+                    if self._should_retire(req, int(tok)):
+                        # retired AT the prefill token (budget 1 / EOS first):
+                        # the lane frees immediately for this same step
+                        self._retire(pi, slot, req)
+                    else:
+                        self.active[pi][slot] = req
+                popped = True
+                break
+            if not popped:
+                break
 
         # one batched decode step per plane with live lanes
         for pi, (plane, pool) in enumerate(zip(self.planes, self.active)):
@@ -143,3 +182,9 @@ class ServeEngine:
         while self.step():
             pass
         return self.router.results()
+
+    # ------------------------------------------------------------------ stats
+    def occupancy(self) -> float:
+        """Live-lane fraction of the fleet's slot pool, 0..1."""
+        total = len(self.planes) * self.serve.slots
+        return self.active_lanes() / total if total else 0.0

@@ -3,8 +3,8 @@
 A plane owns every device-resident object (the compute-dtype weights, the
 slot-pool cache) for one pool; the engine above it only moves token ids and
 bookkeeping.  The port's plane lives on one device: the JAX package's
-(data × model) mesh and its ``PagedInferencePlane`` wait for later slices
-(ROADMAP.md queue 1, item 7), and a mesh raises here.
+(data × model) mesh waits for a later slice (ROADMAP.md queue 1, item 7), and
+a mesh raises here.
 
 - ``decode``: one batched decode step over all ``slots`` lanes, retired
   lanes included (their length is 0; their recurrent state, conv tail and
@@ -13,10 +13,23 @@ bookkeeping.  The port's plane lives on one device: the JAX package's
   forward that fills its own k-batch cache, then one ``scatter_cache``
   writes all k lanes into the pool.
 
+Sampling runs in both via ``sampling.keyed_sample``: per-lane (rid, seed,
+temperature, top_k, top_p) rows ride next to the length row, and each lane's
+token is drawn with the request-keyed ``fold_in(fold_in(key(seed), rid),
+position)``, a pure function of the request.  Prefill draws at ``pos =
+plen`` and decode at ``lengths + 1``.
+
 One-pull-per-step invariant: decode bookkeeping (lengths, next tokens,
-sampling rows) is host-resident numpy, uploaded as arguments; the only
-blocking device→host sync per decode step (and per prefill group) is the
-single ``common.device_get`` of the sampled token row.
+sampling rows, block tables) is host-resident numpy, uploaded as arguments;
+the only blocking device→host sync per decode step (and per prefill group)
+is the single ``common.device_get`` of the sampled token row.
+
+``PagedInferencePlane`` swaps the contiguous per-slot cache lines for a
+shared block pool (``serve.blocks.BlockPool``) with per-lane block tables:
+slot memory then scales with the pool you provision (live tokens), not
+``max_len x slots``.  Its decode cuts each layer's gathered view to
+``max_len``, so the attention sees the contiguous plane's shapes and its
+tokens are the contiguous plane's at every block size.
 """
 from __future__ import annotations
 
@@ -27,8 +40,15 @@ from repro_torch.device import resolve_device
 from repro_torch.models.lm import model as lm
 from repro_torch.models.lm.config import LMConfig
 from repro_torch.serve import common, sampling
+from repro_torch.serve.blocks import BlockPool
 from repro_torch.serve.server import ServeConfig
 from repro_torch.tree import tree_leaves
+
+
+def _decode_positions(lengths: np.ndarray) -> np.ndarray:
+    """Absolute position of the token each decode step SAMPLES: the input
+    token sits at index ``lengths``, so the draw lands at ``lengths + 1``."""
+    return lengths + np.int32(1)
 
 
 class InferencePlane:
@@ -46,9 +66,11 @@ class InferencePlane:
         # a tree already in the compute dtype on this device is shared as is
         self.params = lm.compute_copy(params, cfg, self.device)
 
-        b, s = serve.slots, serve.max_len
-        self.cache = lm.init_cache(cfg, b, s, self.device)
-        # host-resident decode bookkeeping: uploaded as arguments, never pulled
+        b = serve.slots
+        self.cache = self._init_cache()
+        # host-resident decode bookkeeping: uploaded as arguments, never
+        # pulled.  The sampling rows mirror the length row, so a lane's draw
+        # is a pure function of ITS request.
         self.lengths = np.zeros((b,), np.int32)
         self.tokens = np.zeros((b, 1), np.int32)
         self.rids = np.zeros((b,), np.int32)
@@ -56,6 +78,10 @@ class InferencePlane:
         self.temps = np.zeros((b,), np.float32)
         self.top_ks = np.full((b,), sampling.TOP_K_OFF, np.int32)
         self.top_ps = np.full((b,), sampling.TOP_P_OFF, np.float32)
+
+    def _init_cache(self):
+        return lm.init_cache(self.cfg, self.serve.slots, self.serve.max_len,
+                             self.device)
 
     # ---------------------------------------------------------------- sampling
     def _set_sample_rows(self, slots: list[int], rids, samples) -> tuple:
@@ -77,39 +103,61 @@ class InferencePlane:
             self.top_ps[slot] = tps[i]
         return grids, seeds, temps, tks, tps
 
+    def _decode_rows(self):
+        return (self.rids, self.seeds, _decode_positions(self.lengths),
+                self.temps, self.top_ks, self.top_ps)
+
     # ------------------------------------------------------------------ lanes
     def free_slots(self) -> list[int]:
         """Lanes with no resident sequence (length 0 = masked/never filled)."""
         return [i for i in range(self.serve.slots) if self.lengths[i] == 0]
 
     def cache_bytes(self) -> int:
-        """Resident device bytes of this plane's cache."""
+        """Resident device bytes of this plane's cache (pool or lines)."""
         return sum(leaf.nbytes for leaf in tree_leaves(self.cache))
 
+    def _prefill(self, prompts: np.ndarray, rows: tuple):
+        """One forward over ``[k, plen]`` prompts into a fresh k-batch cache
+        of ``max_len`` lines.  Returns (first tokens on the host, sub cache):
+        the group's one device→host pull."""
+        k, plen = prompts.shape
+        sub = lm.init_cache(self.cfg, k, self.serve.max_len, self.device)
+        logits, sub, _ = lm.prefill(self.params, self.cfg,
+                                    common.to_device(prompts, self.device), sub)
+        grids, seeds, temps, tks, tps = rows
+        positions = np.full((k,), plen, np.int32)  # prompt occupies 0..plen-1
+        toks = common.device_get(sampling.keyed_sample(
+            logits, grids, seeds, positions, temps, tks, tps))
+        return toks, sub
+
+    def _check_group(self, slots, prompts) -> None:
+        if prompts.ndim != 2 or prompts.shape[0] != len(slots):
+            raise ValueError(f"prompts must be [len(slots), plen], got "
+                             f"{prompts.shape} for {len(slots)} slots")
+
+    def _commit(self, slots, plen: int, toks) -> None:
+        for i, slot in enumerate(slots):
+            self.lengths[slot] = plen
+            self.tokens[slot, 0] = toks[i]
+
     def prefill_into(self, slots: list[int], prompts: np.ndarray,
+                     budgets: list[int] | None = None,
                      rids: list[int] | None = None,
                      samples=None) -> np.ndarray:
         """Batched prefill of ``[k, plen]`` prompts into ``slots`` (len k).
 
-        Returns the k first tokens (host).  One device->host pull for the
-        group.
+        ``budgets`` (per-request remaining token budgets) is accepted for
+        interface parity with the paged plane, which sizes each lane's block
+        allocation from it; contiguous lanes are pre-sized to ``max_len``.
+        ``rids``/``samples`` carry each request's identity and sampling
+        contract into the keyed sampler (defaults: rid 0, greedy).  Returns
+        the k first tokens (host).  One device->host pull for the group.
         """
-        if prompts.ndim != 2 or prompts.shape[0] != len(slots):
-            raise ValueError(f"prompts must be [len(slots), plen], got "
-                             f"{prompts.shape} for {len(slots)} slots")
-        k, plen = prompts.shape
-        grids, seeds, temps, tks, tps = self._set_sample_rows(slots, rids,
-                                                              samples)
-        sub = lm.init_cache(self.cfg, k, self.serve.max_len, self.device)
-        logits, sub, _ = lm.prefill(self.params, self.cfg,
-                                    common.to_device(prompts, self.device), sub)
-        positions = np.full((k,), plen, np.int32)  # prompt occupies 0..plen-1
-        toks = common.device_get(sampling.keyed_sample(
-            logits, grids, seeds, positions, temps, tks, tps))
+        self._check_group(slots, prompts)
+        rows = self._set_sample_rows(slots, rids, samples)
+        toks, sub = self._prefill(prompts, rows)
         lm.scatter_cache(self.cache, sub, slots)
-        for i, slot in enumerate(slots):
-            self.lengths[slot] = plen
-            self.tokens[slot, 0] = toks[i]
+        self._commit(slots, prompts.shape[1], toks)
         return toks
 
     def decode(self) -> np.ndarray:
@@ -118,9 +166,7 @@ class InferencePlane:
         logits, self.cache = lm.decode_step(
             self.params, self.cfg, common.to_device(self.tokens, self.device),
             self.cache, common.to_device(self.lengths, self.device))
-        return common.device_get(sampling.keyed_sample(
-            logits, self.rids, self.seeds, self.lengths + np.int32(1),
-            self.temps, self.top_ks, self.top_ps))
+        return common.device_get(sampling.keyed_sample(logits, *self._decode_rows()))
 
     def advance(self, slot: int, tok: int) -> None:
         """Commit a decode step's token on a live lane."""
@@ -129,7 +175,9 @@ class InferencePlane:
 
     def release(self, slot: int) -> None:
         """Retire a lane: mask its token/length so later decode steps never
-        read its stale state (the cache slice is replaced at next prefill)."""
+        read its stale state (the cache slice is replaced at next prefill).
+        Sampling rows reset to greedy: a dead lane's draw is a pure argmax
+        and cannot consume or perturb any request's keyed stream."""
         self.lengths[slot] = 0
         self.tokens[slot, 0] = 0
         self.rids[slot] = 0
@@ -137,3 +185,102 @@ class InferencePlane:
         self.temps[slot] = 0.0
         self.top_ks[slot] = sampling.TOP_K_OFF
         self.top_ps[slot] = sampling.TOP_P_OFF
+
+
+class PagedInferencePlane(InferencePlane):
+    """Slot pool backed by a shared paged KV-cache (block pool + tables).
+
+    The pool holds ``1 + pool_blocks`` physical blocks per layer (block 0 is
+    the null block retired lanes write into).  The host keeps the block
+    tables ``[slots, max_blocks]`` and uploads them as a decode argument:
+    tiny, and the one-pull-per-step invariant holds.  Block allocation is
+    up-front at prefill, ``blocks_for(min(prompt + budget, max_len))`` per
+    request, so decode never allocates and admission failure is a clean
+    ``Backpressure`` from ``BlockPool.alloc``.
+    """
+
+    def __init__(self, params, cfg: LMConfig, serve: ServeConfig, *,
+                 mesh=None, device: str | torch.device = "cuda"):
+        if serve.block_size is None or serve.block_size < 1:
+            raise ValueError(f"paged plane needs block_size >= 1, "
+                             f"got {serve.block_size}")
+        self.block_size = serve.block_size
+        #: table width: logical blocks per lane at max_len
+        self.max_blocks = -(-serve.max_len // serve.block_size)
+        self.pool = BlockPool(serve.pool_capacity(), serve.block_size)
+        self._mask = lm.paged_cache_mask(cfg)
+        super().__init__(params, cfg, serve, mesh=mesh, device=device)
+        #: host block tables; the row of a retired lane is all-null
+        self.tables = np.zeros((serve.slots, self.max_blocks), np.int32)
+        self._blocks: list[list[int]] = [[] for _ in range(serve.slots)]
+
+    def _init_cache(self):
+        return lm.init_paged_cache(self.cfg, self.serve.slots, self.serve.max_len,
+                                   num_blocks=1 + self.pool.num_blocks,
+                                   block_size=self.block_size, device=self.device)
+
+    # ------------------------------------------------------------- accounting
+    def block_cost(self, prompt_len: int, budget: int) -> int:
+        """Blocks a request occupies for its lifetime (allocated up front)."""
+        return self.pool.blocks_for(min(prompt_len + budget, self.serve.max_len))
+
+    def free_blocks(self) -> int:
+        return self.pool.available
+
+    # ------------------------------------------------------------------ lanes
+    def prefill_into(self, slots: list[int], prompts: np.ndarray,
+                     budgets: list[int] | None = None,
+                     rids: list[int] | None = None,
+                     samples=None) -> np.ndarray:
+        """Paged batched prefill: allocate each lane's lifetime blocks, land
+        the prompt blocks through the tables, record first tokens.
+
+        Raises ``Backpressure`` (after rolling back the group's partial
+        allocations) if the pool cannot cover the group: the Router's block
+        accounting makes this unreachable in the engine path, but direct
+        callers get the clean failure instead of corrupted tables.
+        """
+        self._check_group(slots, prompts)
+        k, plen = prompts.shape
+        if budgets is None:
+            budgets = [self.serve.max_new_tokens] * k
+        got: list[list[int]] = []
+        try:
+            for budget in budgets:
+                got.append(self.pool.alloc(self.block_cost(plen, budget)))
+        except Exception:
+            for blocks in got:
+                self.pool.free(blocks)
+            raise
+        nbp = self.pool.blocks_for(plen)  # blocks the prompt itself covers
+        for slot, blocks in zip(slots, got):
+            self._blocks[slot] = blocks
+            self.tables[slot, :] = 0
+            self.tables[slot, :len(blocks)] = blocks
+        phys = np.stack([self.tables[slot, :nbp] for slot in slots])
+
+        rows = self._set_sample_rows(slots, rids, samples)
+        toks, sub = self._prefill(prompts, rows)
+        lm.scatter_cache_paged(self.cache, sub, slots, phys,
+                               block_size=self.block_size, mask=self._mask)
+        self._commit(slots, plen, toks)
+        return toks
+
+    def decode(self) -> np.ndarray:
+        """One batched decode step through the block tables.  Same
+        single-pull contract as the contiguous plane."""
+        paged = (common.to_device(self.tables, self.device), self.block_size,
+                 self.serve.max_len)
+        logits, self.cache = lm.decode_step(
+            self.params, self.cfg, common.to_device(self.tokens, self.device),
+            self.cache, common.to_device(self.lengths, self.device), paged=paged)
+        return common.device_get(sampling.keyed_sample(logits, *self._decode_rows()))
+
+    def release(self, slot: int) -> None:
+        """Retire a lane: free its blocks back to the pool and null its
+        table row, so the lane's masked decode writes land in block 0."""
+        super().release(slot)
+        if self._blocks[slot]:
+            self.pool.free(self._blocks[slot])
+            self._blocks[slot] = []
+        self.tables[slot, :] = 0

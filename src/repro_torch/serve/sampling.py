@@ -1,13 +1,32 @@
-"""Sampling contract of the serving stack; greedy decoding only, so far.
+"""Stateless request-keyed sampling: the index-batching principle for PRNGs.
 
-The JAX package draws sampled tokens with request-keyed keys,
-``fold_in(fold_in(PRNGKey(seed), rid), position)``, so a draw depends only
-on ``(seed, rid, position, logits)``.  Torch cannot reproduce those draws, and
-the port's own keyed sampler waits for ROADMAP.md queue 1, item 7.  Until
-then the contract is checked here as in the JAX package, and any sampled
-setting (temperature > 0, top_k, top_p) raises ``NotImplementedError`` at
-config or submit time.  Greedy decoding is exact: the argmax of the raw
-logits, the first index on ties, as ``jnp.argmax`` picks.
+The token at sequence position ``pos`` of request ``rid`` is drawn with
+
+    key = fold_in(fold_in(PRNGKey(seed), rid), pos)
+
+so a draw depends only on ``(seed, rid, pos, logits)``: not on plane
+assignment, slot index, batch composition or any other request.  Positions
+are absolute (the prompt occupies ``0..plen-1``; the first sampled token
+sits at ``pos = plen``), so a restored request, re-prefilled from ``prompt +
+generated prefix`` of length ``plen + g``, draws at ``pos = plen + g`` with
+the very key the dead host would have used next.  Its logits come from a
+prefill instead of a decode step, whose roundings differ: in float32 by
+some ulps, in bf16 by up to a tenth on recurrentgemma's smoke config, in
+the JAX package as in the port.  So a restored draw equals the
+uninterrupted one in float32 unless two perturbed values lie within such a
+margin, and in bf16 a near-tie draw can flip.
+
+The keys and the uniform draws are the JAX package's bit for bit
+(``repro_torch.serve.threefry``); there is no ``torch.Generator``.  The
+filters run in the logits' dtype, rounded where the JAX package's are
+(top-p's softmax and cumulative mass included), and a sampled lane takes the
+argmax of ``filtered / temperature + gumbel`` (the first index on ties): the
+float32 temperature row promotes the quotient to float32, so the gumbel
+noise ``-log(-log(u))`` is float32 from 32-bit draws for every logits
+dtype.  torch's and XLA's float32 ``log`` and ``exp`` differ by some ulps, so
+a draw whose two largest perturbed values lie within such a margin may pick
+the other token.  A temperature-0 lane returns the argmax of the raw
+logits, as greedy decoding always did.
 """
 from __future__ import annotations
 
@@ -17,20 +36,23 @@ import math
 import numpy as np
 import torch
 
-#: disabled-filter sentinels
+from repro_torch.serve import threefry
+
+#: disabled-filter sentinels (real no-op parameter values)
 TOP_K_OFF = 0
 TOP_P_OFF = 1.0
-
-_SAMPLED = ("sampled decoding (temperature > 0, top_k, top_p) is not ported "
-            "yet: the port serves greedy requests only (ROADMAP.md queue 1, "
-            "item 7)")
+#: the block length of XLA's scan for a cumulative sum (see _cumsum_blocked)
+_SCAN_BLOCK = 16
 
 
 @dataclasses.dataclass(frozen=True)
 class SampleParams:
     """Per-request sampling contract, resolved + validated at submit time.
 
-    ``temperature == 0`` is greedy, the only mode the port serves yet.
+    ``seed`` is the request's base PRNG seed (folded with rid/position at
+    draw time); ``top_k``/``top_p`` filter logits before the draw
+    (``TOP_K_OFF``/``TOP_P_OFF`` disable).  ``temperature == 0`` is greedy
+    regardless of the other fields.
     """
 
     seed: int = 0
@@ -53,9 +75,6 @@ class SampleParams:
             raise ValueError(
                 f"top_p must be in (0, 1] ({TOP_P_OFF} = disabled), got "
                 f"{self.top_p}")
-        if (self.temperature > 0.0 or self.top_k != TOP_K_OFF
-                or self.top_p != TOP_P_OFF):
-            raise NotImplementedError(_SAMPLED)
         return self
 
     @classmethod
@@ -86,15 +105,92 @@ def sample_rows(samples, dtype_len: int) -> tuple:
     return seeds, temps, tks, tps
 
 
-def keyed_sample(logits, rids, seeds, positions, temps, top_ks, top_ps):
-    """One token per lane from ``logits [B, V]``; the row arguments are the
-    host-side ``[B]`` rows the JAX sampler takes.
+def _row(x, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x).astype(np.int64), device=device)
 
-    Every lane must be greedy (temperature 0, no filter): its token is the
-    argmax of the raw logits, the first index on ties.
+
+def request_key(seed, rid, position) -> tuple[torch.Tensor, torch.Tensor]:
+    """The draw keys for token ``position`` of request ``rid`` (int64
+    tensors of 32-bit words, broadcast together): a pure function of
+    indices, with no stream and nothing to restore."""
+    return threefry.fold_in(threefry.fold_in(threefry.prng_key(seed), rid),
+                            position)
+
+
+def _filter_top_k(lg, k):
+    """Mask logits below each row's k-th largest to -inf.  ``k <= 0``
+    disables (effective k = vocab).  Ties at the k-th value are kept."""
+    vocab = lg.shape[-1]
+    eff = torch.where(k <= 0, vocab, torch.clamp(k, max=vocab))
+    kth = torch.sort(lg, dim=-1, descending=True).values.gather(-1, (eff - 1)[:, None])
+    return torch.where(lg >= kth, lg, -torch.inf)
+
+
+def _cumsum_blocked(x):
+    """Cumulative sum along the last dim in ``x``'s dtype, in the association
+    XLA gives ``jnp.cumsum`` (a reduce-window rewritten as a blocked scan):
+    blocks of 16 summed in order, the block totals scanned the same way and
+    added to each block, every add rounded to the dtype.  In bf16 that
+    association decides where a long tail's mass stops growing, and so where
+    top-p cuts."""
+    n = x.shape[-1]
+    if n <= _SCAN_BLOCK:
+        out = [x[..., 0]]
+        for i in range(1, n):
+            out.append(out[-1] + x[..., i])
+        return torch.stack(out, dim=-1)
+    nb = -(-n // _SCAN_BLOCK)
+    blocks = torch.nn.functional.pad(x, (0, nb * _SCAN_BLOCK - n))
+    local = _cumsum_blocked(blocks.reshape(*x.shape[:-1], nb, _SCAN_BLOCK))
+    totals = _cumsum_blocked(local[..., -1])
+    before = torch.nn.functional.pad(totals[..., :-1], (1, 0))
+    return (before[..., None] + local).reshape(*x.shape[:-1], -1)[..., :n]
+
+
+def _filter_top_p(lg, p):
+    """Nucleus filter: keep each row's smallest descending-probability prefix
+    whose cumulative mass reaches ``p`` (the first index reaching it is
+    inclusive, so at least one token stays).  The softmax and the mass are
+    in ``lg``'s dtype, rounded as the JAX package's: the shifted logits and
+    the exponentials in the dtype, their sum in float32, the quotient and
+    every partial sum of the mass in the dtype."""
+    desc = torch.sort(lg, dim=-1, descending=True).values
+    ex = torch.exp((desc - desc[:, :1]).float())
+    total = ex.sum(dim=-1, keepdim=True).to(lg.dtype)
+    cum = _cumsum_blocked(ex.to(lg.dtype) / total)
+    keep = torch.clamp(torch.sum(cum.float() < p[:, None], dim=-1) + 1, max=lg.shape[-1])
+    thresh = desc.gather(-1, (keep - 1)[:, None])
+    return torch.where(lg >= thresh, lg, -torch.inf)
+
+
+def perturbed(logits, rids, seeds, positions, temps, top_ks, top_ps):
+    """``filtered / temperature + gumbel`` in float32 for lanes that all
+    sample (temperature > 0): the values whose argmax is each lane's token.
+    The rows are host arrays; ``logits`` is ``[B, V]`` on any device."""
+    dev = logits.device
+    filt = _filter_top_p(_filter_top_k(logits, _row(top_ks, dev)),
+                         torch.as_tensor(np.asarray(top_ps, np.float32), device=dev))
+    key = request_key(_row(seeds, dev), _row(rids, dev), _row(positions, dev))
+    gumbel = -torch.log(-torch.log(threefry.uniform(key, logits.shape[-1])))
+    t = torch.as_tensor(np.asarray(temps, np.float32), device=dev)[:, None]
+    return filt.float() / t + gumbel
+
+
+def keyed_sample(logits, rids, seeds, positions, temps, top_ks, top_ps):
+    """Sample one token per lane from ``logits [B, V]`` with request-keyed
+    draws.  The row arguments are the host-side ``[B]`` rows; every output
+    depends only on its own lane's ``(seed, rid, position, logits)``.
+
+    A ``temperature == 0`` lane returns ``argmax`` of the RAW logits (filters
+    never touch it).  Only the sampled lanes pay for the filters and the
+    draw, and a step with none is one argmax, as greedy decoding was.
     """
-    if (np.any(np.asarray(temps) > 0.0)
-            or np.any(np.asarray(top_ks) != TOP_K_OFF)
-            or np.any(np.asarray(top_ps) != TOP_P_OFF)):
-        raise NotImplementedError(_SAMPLED)
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+    toks = torch.argmax(logits, dim=-1).to(torch.int32)
+    sampled = np.flatnonzero(np.asarray(temps) > 0.0)
+    if sampled.size:
+        rows = (np.asarray(r)[sampled] for r in (rids, seeds, positions, temps,
+                                                 top_ks, top_ps))
+        idx = torch.as_tensor(sampled, device=logits.device)
+        drawn = torch.argmax(perturbed(logits[idx], *rows), dim=-1)
+        toks[idx] = drawn.to(torch.int32)
+    return toks

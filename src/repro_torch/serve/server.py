@@ -4,10 +4,10 @@ Weights and caches are resident on the device; the host only ships token
 ids.  ``Server`` keeps ``slots`` decode lanes; finished lanes are refilled
 from the request queue via single-request prefill into the shared cache.
 
-This is the REFERENCE implementation: one lane prefilled at a time, greedy
-tokens held equal to the JAX package's ``Server`` by the tests.  The engine
-(``repro_torch.serve.engine.ServeEngine``) batches prefill; its greedy output
-is held equal to this server.
+This is the REFERENCE implementation: one lane prefilled at a time, tokens
+held equal to the JAX package's ``Server`` by the tests, greedy and sampled.
+The engine (``repro_torch.serve.engine.ServeEngine``) batches prefill and may
+page its caches; its output is held equal to this server at any temperature.
 
 Decode bookkeeping (lengths, last tokens, lane occupancy) lives on the HOST:
 the only blocking device→host sync per decode step is the single
@@ -34,28 +34,41 @@ class ServeConfig:
     slots: int = 4  # concurrent decode lanes
     max_len: int = 256  # cache capacity per lane
     max_new_tokens: int = 32
-    #: default per-request sampling contract (each submit may override);
-    #: anything but greedy raises until the keyed sampler is ported
+    #: default per-request sampling contract (each submit may override):
+    #: draws are request-keyed, ``fold_in(fold_in(key(seed), rid), pos)``,
+    #: so they never depend on plane/slot/batch placement
     temperature: float = 0.0  # 0 = greedy
     sample_seed: int = 0  # default per-request base seed
     top_k: int | None = None  # keep the k largest logits (None = off)
     top_p: float | None = None  # nucleus mass cutoff in (0, 1] (None = off)
     eos_id: int | None = None
-    #: paged KV: tokens per cache block (None = contiguous per-slot lines)
-    #: and the pool's usable blocks.  The reference Server ignores them;
-    #: ``ServeEngine`` raises on a block size until the paged plane is ported.
+    #: paged KV: tokens per cache block (None = contiguous per-slot lines).
+    #: The reference Server ignores it; it stays the contiguous anchor.
     block_size: int | None = None
+    #: usable blocks in the shared pool; None = slots * ceil(max_len /
+    #: block_size), contiguous capacity at block granularity.  Size it to the
+    #: EXPECTED live tokens (prompt + budget per request x slots) for the
+    #: memory win; admission accounts blocks and backpressures when the pool
+    #: is exhausted.
     pool_blocks: int | None = None
 
     def __post_init__(self):
-        # reject bad (and not yet ported) sampling defaults at CONFIG time,
-        # before a request ever rides on them
+        # reject bad sampling defaults at CONFIG time, before a request ever
+        # rides on them
         sampling.SampleParams(seed=self.sample_seed,
                               temperature=self.temperature,
                               top_k=(sampling.TOP_K_OFF if self.top_k is None
                                      else self.top_k),
                               top_p=(sampling.TOP_P_OFF if self.top_p is None
                                      else self.top_p)).validate()
+
+    def pool_capacity(self) -> int:
+        """Usable blocks in the paged pool (0 when not paged)."""
+        if self.block_size is None:
+            return 0
+        if self.pool_blocks is not None:
+            return self.pool_blocks
+        return self.slots * (-(-self.max_len // self.block_size))
 
 
 def validate_request(serve: ServeConfig, prompt: np.ndarray,

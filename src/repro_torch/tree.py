@@ -48,13 +48,15 @@ def tree_paths(tree: Any, prefix: str = "") -> list[str]:
 
 def tree_unflatten(like: Any, leaves: list) -> Any:
     """Rebuild a tree shaped like ``like`` from :func:`tree_leaves` order."""
-    it = iter(leaves)
+    return _build(like, iter(leaves))
 
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        if isinstance(node, list):
-            return [build(child) for child in node]
-        return next(it)
 
-    return build(like)
+def _build(node: Any, it) -> Any:
+    # a module-level function, not a closure over ``it``: a recursive closure
+    # is a reference cycle, and its cell would hold the leaves' list (every
+    # step's tensors) until the cyclic collector ran
+    if isinstance(node, dict):
+        return {k: _build(node[k], it) for k in sorted(node)}
+    if isinstance(node, list):
+        return [_build(child, it) for child in node]
+    return next(it)

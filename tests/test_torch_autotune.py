@@ -389,3 +389,10 @@ def test_jax_tuning_cache_untouched():
     """Runs last in this file: no test above wrote results/TUNING_cpu.json."""
     assert JAX_CACHE_DIGEST is not None
     assert hashlib.sha256(JAX_CACHE.read_bytes()).hexdigest() == JAX_CACHE_DIGEST
+
+
+def test_registered_ops_match_jax():
+    """The port registers the JAX dispatcher's ops, in its order."""
+    assert autotune.registered_ops() == jax_autotune.registered_ops()
+    assert set(autotune.registered_ops()) == {
+        "window_gather", "gather", "diffusion_conv", "linear_scan", "flash_attention"}

@@ -733,3 +733,122 @@ def test_cuda_lm_arch_matches_the_cpu(cuda, arch_id):
             logits, cache = lm.decode_step(params, cfg, seq[:, t:t + 1], cache, lengths)
             lengths = lengths + 1
             torch.testing.assert_close(logits, full[:, t], atol=1e-4, rtol=1e-4)
+
+
+# ------------------------------------- paged caches, keyed sampling, the fleet
+@pytest.mark.cuda
+def test_cuda_request_keys_and_bits_equal_the_cpu(cuda):
+    """The threefry keys, bits and uniforms computed on the card's int64
+    tensors equal the CPU's bit for bit (seeds next to 2**32 included)."""
+    from repro_torch.serve import sampling, threefry
+
+    rng = np.random.default_rng(0)
+    seeds = np.concatenate([rng.integers(0, 2**32, 62), [2**32 - 1, 2**32 - 2]])
+    rids = rng.integers(0, 2**31, 64)
+    pos = rng.integers(0, 4096, 64)
+    keys = {dev: sampling.request_key(*(torch.as_tensor(a, device=dev)
+                                        for a in (seeds, rids, pos)))
+            for dev in ("cpu", cuda)}
+    for a, b in zip(keys["cpu"], keys[cuda]):
+        assert torch.equal(a, b.cpu())
+    assert torch.equal(threefry.random_bits(keys[cuda], 4099).cpu(),
+                       threefry.random_bits(keys["cpu"], 4099))
+    assert torch.equal(threefry.uniform(keys[cuda], 4099).cpu(),
+                       threefry.uniform(keys["cpu"], 4099))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_keyed_sample_tokens_equal_the_cpu(cuda, dtype):
+    """[8, 151,936] rows (qwen1.5-4b's vocabulary), greedy, sampled and
+    filtered lanes: the card's tokens equal the CPU's on the same logits."""
+    from repro_torch.serve import keyed_sample
+
+    rng = np.random.default_rng(1)
+    logits = torch.as_tensor(rng.standard_normal((8, 151_936)).astype(np.float32) * 3
+                             ).to(dtype)
+    rows = (rng.integers(0, 1000, 8).astype(np.int32),
+            rng.integers(0, 2**32, 8, dtype=np.uint32),
+            rng.integers(1, 1024, 8).astype(np.int32),
+            np.array([0, 0.7, 0.7, 1.3, 0.7, 0.2, 1.0, 0.7], np.float32),
+            np.array([0, 0, 50, 0, 50, 10, 0, 1], np.int32),
+            np.array([1, 1, 0.9, 0.9, 1, 0.5, 0.95, 1], np.float32))
+    assert torch.equal(keyed_sample(logits.to(cuda), *rows).cpu(),
+                       keyed_sample(logits, *rows))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch_id,block_size", [("qwen1.5-4b", 4), ("qwen1.5-4b", 5),
+                                                ("deepseek-v2-lite-16b", 5),
+                                                ("recurrentgemma-2b", 4)])
+def test_cuda_paged_engine_equals_contiguous_sampled(cuda, arch_id, block_size):
+    """A paged engine (a pool sized to the live tokens) generates the
+    contiguous engine's tokens on the card, greedy and sampled lanes mixed,
+    with every block back in the pool at the end."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.lm import model as lm
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    cfg = get_arch(arch_id).smoke_config()
+    params = lm.init(torch.Generator(device=cuda).manual_seed(0), cfg, device=cuda)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab, int(n)) for n in rng.integers(3, 12, 9)]
+    outs = []
+    for extra in ({}, dict(block_size=block_size, pool_blocks=4 * (-(-20 // block_size)))):
+        eng = ServeEngine(params, cfg, ServeConfig(slots=4, max_len=24, max_new_tokens=8,
+                                                   **extra), planes=2, device=cuda)
+        rids = [eng.submit(p, temperature=0.8 * (i % 2), seed=i, top_k=20 * (i % 3 == 1))
+                for i, p in enumerate(prompts)]
+        got = eng.run()
+        outs.append([got[r] for r in rids])
+        assert all(r.status == "ok" for r in eng.router.done.values())
+    assert outs[0] == outs[1]
+    assert all(p.pool.available == p.pool.num_blocks for p in eng.planes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_cuda_fleet_kill_restores_equal_tokens(cuda, temperature):
+    """The in-process kill drill on the card (float32 smoke config): worker
+    1 dies mid-decode, its requests re-prefill on worker 0, and every
+    request's tokens equal one engine's."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.lm import model as lm
+    from repro_torch.serve import (FleetEngine, LocalMailbox, ServeConfig, ServeEngine,
+                                   ServeWorker)
+
+    cfg = get_arch("qwen1.5-4b").smoke_config()
+    params = lm.init(torch.Generator(device=cuda).manual_seed(1), cfg, device=cuda)
+    sc = ServeConfig(slots=2, max_len=48, max_new_tokens=8, block_size=4)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 120, int(rng.integers(2, 10))) for _ in range(6)]
+    kw = lambda i: dict(temperature=temperature, seed=40 + i)
+    ref_eng = ServeEngine(params, cfg, sc, device=cuda)
+    ref_rids = [ref_eng.submit(p, **kw(i)) for i, p in enumerate(prompts)]
+    ref = ref_eng.run()
+    now = [0.0]
+    fleet = FleetEngine(sc, world=2, hb_timeout=1.5, clock=lambda: now[0])
+    workers = {}
+    for wid in range(2):
+        inbox, outbox = LocalMailbox(), LocalMailbox()
+        workers[wid] = ServeWorker(params, cfg, sc, worker_id=wid, inbox=inbox,
+                                   outbox=outbox, device=cuda)
+        fleet.attach(wid, send=inbox, recv=outbox)
+    rids = [fleet.submit(p, **kw(i)) for i, p in enumerate(prompts)]
+    n, killed = 0, False
+    while fleet.pending() or n == 0:
+        fleet.tracker.observe({0: n} if killed else {0: n, 1: n})
+        fleet.tick()
+        for wid, w in workers.items():
+            if not (killed and wid == 1):
+                w.tick()
+        if not killed and n == 3:
+            assert fleet.workers[1].inflight
+            killed = True
+            now[0] += 2.0
+        now[0] += 0.01
+        n += 1
+        assert n < 800
+    res = fleet.results()
+    assert [res[r] for r in rids] == [ref[r] for r in ref_rids]
+    assert fleet.workers[0].served == len(prompts)

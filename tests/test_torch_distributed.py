@@ -504,3 +504,19 @@ def test_gloo_prefetch_is_bit_identical_to_the_synchronous_run(gloo_runs, name, 
     staleness 0 and 1 the run equals the synchronous one bit for bit."""
     for run in gloo_runs(2)[1]:
         assert _no_time(run[f"{name}-staleness{staleness}"]) == _no_time(run[name]["hist"])
+
+
+@pytest.mark.parametrize("world", [2, 3])
+def test_shard_aligned_epoch_rank_is_feed_transposed_as_in_jax(world):
+    raw = make_traffic_series(500, 3)
+    spec, jspec = WindowSpec(horizon=4), JWindowSpec(horizon=4)
+    ds, jds = IndexDataset.from_raw(raw, spec), JIndexDataset.from_raw(raw, jspec)
+    ours = tsamplers.ShardAlignedBatchSampler(ds.entries, spec, ds.train_windows, 4,
+                                              world, seed=3)
+    theirs = jsamplers.ShardAlignedBatchSampler(jds.entries, jspec, jds.train_windows,
+                                                4, world, seed=3)
+    for epoch in range(3):
+        for rank in range(world):
+            got = ours.epoch_rank(epoch, rank)
+            np.testing.assert_array_equal(got, ours.feed(rank, epoch))
+            np.testing.assert_array_equal(got, theirs.epoch_rank(epoch, rank))

@@ -82,7 +82,8 @@ def test_flash_property(s, h, kv, d):
 def test_flash_non_causal_ragged_matches_jax_oracle(s):
     """Held against JAX's flash_attention_ref, never its Pallas kernel: with
     causal=False the Pallas kernel leaves its zero padding keys unmasked
-    (S=100, block 64: max abs error 0.157; ROADMAP queue 2, item 4)."""
+    (S=100, block 64: max abs error 0.157; ROADMAP.md queue 3, non-causal
+    ragged attention)."""
     q, k, v = _qkv(3, 2, s, 4, 2, 16)
     want = jax_flash_ref(*(jnp.swapaxes(jnp.asarray(a), 1, 2) for a in (q, k, v)),
                          causal=False)

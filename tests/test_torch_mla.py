@@ -87,16 +87,6 @@ def test_mla_decode_matches_jax(layer, lengths):
     close(tk, jk)
 
 
-def test_mla_decode_refuses_a_paged_pool(layer):
-    _, tcfg, _, tp = layer
-    m = tcfg.mla
-    with pytest.raises(NotImplementedError, match="paged"):
-        tmla.mla_decode(tp, tcfg, torch.zeros(1, 1, tcfg.d_model),
-                        torch.zeros(1, 4, m.kv_lora_rank),
-                        torch.zeros(1, 4, m.qk_rope_head_dim),
-                        torch.zeros(1, dtype=torch.long), paged=(None, 4))
-
-
 def test_mla_decode_agrees_with_the_decompressed_attention(layer):
     """The absorbed decode of token t over the cache of tokens 0..t equals
     the decompressed causal attention's row t (the JAX package's identity)."""

@@ -165,3 +165,47 @@ def test_train_step_matches_jax(microbatches, grad_dtype):
                                    atol=ATOL, rtol=RTOL)
     tol = dict(atol=ATOL, rtol=RTOL) if grad_dtype is None else dict(atol=1e-4, rtol=1e-3)
     _assert_tree_close(tstate["params"], jstate["params"], **tol)
+
+
+@pytest.mark.parametrize("step", [0, 3, 250])
+def test_constant_schedule_matches_jax(step):
+    from repro.optim import constant as jax_constant
+    from repro_torch.optim import constant
+
+    got = constant(step, base_lr=3e-4, warmup_steps=10, total_steps=200)
+    assert got.dtype == torch.float32 and got.shape == ()
+    assert float(got) == float(jax_constant(step, base_lr=3e-4))
+
+
+@pytest.mark.parametrize("global_batch,base_batch,cap", [
+    (64, 64, 16.0), (1024, 64, 16.0), (4096, 64, 16.0), (96, 64, 1.0), (32, 64, 16.0)])
+def test_linear_scaled_lr_matches_jax(global_batch, base_batch, cap):
+    from repro.optim import linear_scaled_lr as jax_linear_scaled_lr
+    from repro_torch.optim import linear_scaled_lr
+
+    assert (linear_scaled_lr(1e-3, global_batch, base_batch, cap)
+            == jax_linear_scaled_lr(1e-3, global_batch, base_batch, cap))
+
+
+def test_tree_unflatten_leaves_no_reference_cycle():
+    """A rebuilt tree holds its leaves only through itself: dropping it frees
+    them with the cyclic collector off.  (A recursive closure over the
+    leaves' iterator used to keep every rebuild's leaves, such as a train
+    step's gradients, alive until the collector ran.)"""
+    import gc
+    import weakref
+
+    from repro_torch.tree import tree_unflatten
+
+    like = {"a": [torch.zeros(2), {"b": torch.zeros(3)}], "c": torch.zeros(1)}
+    leaves = [torch.ones(2), torch.full((3,), 2.0), torch.full((1,), 3.0)]
+    refs = [weakref.ref(t) for t in leaves]
+    gc.disable()
+    try:
+        tree = tree_unflatten(like, leaves)
+        assert tree_paths(tree) == tree_paths(like)
+        assert all(a is b for a, b in zip(tree_leaves(tree), leaves))
+        del tree, leaves
+        assert all(r() is None for r in refs)
+    finally:
+        gc.enable()
