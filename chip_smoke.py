@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's eleven main paths through their user entry points, each at
+Drives the port's twelve main paths through their user entry points, each at
 the full width of a registered arch, with every kernel count set to 0 just
 before a path and read just after it:
 
@@ -159,6 +159,25 @@ before a path and read just after it:
   qwen1.5-4b and fleet paths (the launcher serves with the plain scan, as
   the JAX launcher does; the fleet's workers are other processes): the four
   counts are set to 0 before each and must read 0 after it.
+- the launch tooling (``repro_torch.launch.{specs,dryrun,costs,roofline}``):
+  (a) ``python -m repro_torch.launch.dryrun --device cuda`` in one process
+  a cell, six at a time, on fake CUDA meshes of 256 (16x16) and 512
+  (2x16x16) ranks: both ST-GNN cells under each placement, qwen1.5-4b's
+  ``train_4k``, ``prefill_32k`` and ``decode_32k`` and
+  deepseek-v2-lite-16b's ``decode_32k``; each record's per-device memory,
+  FLOPs, bytes and collectives by kind, and its roofline row (a cell past
+  240 s is recorded as failed); then ``--halo-evidence`` on a fake mesh of
+  8, which must show 0 data-collective bytes at ``halo=False`` and more at
+  ``halo=True``.  (b) Over a one-rank NCCL group, three cells at a 1x1
+  mesh at the sizes the paths above run (PGT-DCRNN batch 32 on 8,640
+  entries, dcrnn-pems batch 8 on 104, qwen1.5-4b decode of 8 lanes at
+  ``max_len`` 1,024): each is dry-run, then its args are drawn on
+  ``cuda:0`` and the same program runs for real; the predicted FLOPs must
+  equal the cost counter's over the real step, and the predicted peak must
+  be within 10 % of ``max_memory_allocated`` above the args' start; the
+  roofline bound is printed beside the measured CUDA-event step.  The
+  cells use the plain gather and hops, as the JAX package's do: no kernel
+  runs on this path.
 
 Phases: device (card name and power limit; TF32 off for matmuls and cuDNN);
 build (the CUDA kernels compiled from ``src/repro_torch``, one nvcc per
@@ -3011,6 +3030,216 @@ def phase_lm(profile: bool) -> None:
     phase_lm_smoke()
     log(f"LM family: phase wall {time.perf_counter() - t0:.1f} s")
 
+# ------------------------------------------------------------------ dry-run
+PLACEMENTS = ("replicated", "partitioned", "ondemand")
+# (a) cells dry-run on fake CUDA meshes of 256 and 512 ranks, each in its
+# own process (a fake process group is global state of a process)
+DRYRUN_CELLS = ([("dcrnn-pems", "train_pems", p) for p in PLACEMENTS]
+                + [("pgt-dcrnn-pems-all-la", "train_all_la", p) for p in PLACEMENTS]
+                + [("qwen1.5-4b", s, None) for s in ("train_4k", "prefill_32k", "decode_32k")]
+                + [("deepseek-v2-lite-16b", "decode_32k", None)])
+DRYRUN_JOBS = 8          # processes at once (the card's host has 8 cores)
+DRYRUN_CELL_TIMEOUT = 240  # seconds a cell may run before it is recorded as failed
+DRYRUN_PEAK_RTOL = 0.10  # predicted vs measured per-device peak at 1x1
+
+
+def dryrun_cell(arch_id, shape, placement, multi_pod, out_dir) -> dict:
+    tag = f"{arch_id}-{shape}-{placement or 'lm'}-{'2x16x16' if multi_pod else '16x16'}"
+    path = os.path.join(out_dir, tag + ".json")
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--device", "cuda",
+           "--arch", arch_id, "--shape", shape, "--cell-timeout", str(DRYRUN_CELL_TIMEOUT),
+           "--out", path]
+    if multi_pod:
+        cmd.append("--multi-pod")
+    if placement:
+        cmd += ["--placement", placement]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    run = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True, text=True,
+                         timeout=DRYRUN_CELL_TIMEOUT + 120)
+    if not os.path.exists(path):
+        raise RuntimeError(f"dry-run of {tag} wrote no record (exit {run.returncode}): "
+                           f"{run.stderr[-2000:]}")
+    with open(path) as f:
+        (rec,) = json.load(f)
+    return rec
+
+
+def phase_dryrun_meshes(out_dir) -> list[dict]:
+    """(a) The production meshes: every listed cell at 16x16 and 2x16x16,
+    then the halo evidence on a fake mesh of 8."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.launch import dryrun, roofline
+
+    t0 = time.perf_counter()
+    jobs = [(a, s, p, mp) for mp in (False, True) for a, s, p in DRYRUN_CELLS]
+    with ThreadPoolExecutor(DRYRUN_JOBS) as pool:
+        records = list(pool.map(lambda j: dryrun_cell(*j, out_dir), jobs))
+    for rec in records:
+        log(f"dry-run: {dryrun.format_record(rec)}")
+        if rec["status"] != "ok":
+            tail = [ln.strip() for ln in rec.get("traceback", "").splitlines()
+                    if ln.strip().startswith("File") and "repro_torch" in ln][-3:]
+            log(f"  failed at: {' <- '.join(reversed(tail))}")
+        if rec["status"] == "ok":
+            m = rec["memory"]
+            log(f"  memory/device: argument {m['argument_bytes']} output {m['output_bytes']} "
+                f"temp {m['temp_bytes']} alias {m['alias_bytes']} peak {m['peak_bytes']} "
+                f"bytes; collectives/device {json.dumps(rec['collectives'])}")
+    log("dry-run roofline (H100 SXM datasheet peaks, 50 GB/s a GPU across nodes):")
+    for line in roofline.format_table(roofline.summarize(records)).splitlines():
+        log(f"  {line}")
+    n_ok = sum(r["status"] == "ok" for r in records)
+    log(f"dry-run: {n_ok} of {len(records)} cell runs ok; meshes phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    failed = [f"{r['arch']}:{r['shape']}:{r.get('options', {}).get('placement', 'lm')} "
+              f"{r.get('mesh')}" for r in records if r["status"] != "ok"]
+    check(not failed, f"dry-run cells failed: {failed}")
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    halo_path = os.path.join(out_dir, "halo.json")
+    subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--device", "cuda",
+                    "--halo-evidence", "--out", halo_path], env=env, cwd=ROOT,
+                   capture_output=True, text=True, check=True, timeout=300)
+    with open(halo_path) as f:
+        halo = json.load(f)
+    df, dt = halo["halo_false"]["data_bytes"], halo["halo_true"]["data_bytes"]
+    # the collectives these programs specify (the per-rank program's explicit
+    # all-reduce; the global-index program's series made replicated), which
+    # tests/test_torch_dryrun.py holds to XLA's choices for the JAX programs
+    log(f"dry-run halo evidence on a fake mesh of {halo['mesh']} (the communication "
+        f"the port's programs specify): halo=False data-collective bytes/device {df} "
+        f"(gradient all-reduce {halo['halo_false']['all-reduce']}), halo=True {dt}")
+    check(df == 0, "the halo=False program moved data-collective bytes")
+    check(dt > 0, "the halo=True program moved no data-collective byte")
+    return records
+
+
+def dryrun_card_cells():
+    """(b) cells at a 1x1 mesh, at the sizes the paths above run."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeCell
+
+    return [
+        (get_arch("pgt-dcrnn-pems-all-la"), ShapeCell("train_b32", "train", 12, BATCH),
+         {"series_len": ENTRIES}),
+        (get_arch("dcrnn-pems"), ShapeCell("train_b8", "train", 12, 8), {"series_len": 104}),
+        (get_arch("qwen1.5-4b"), ShapeCell("decode_8x1024", "decode", 1024, 8), {}),
+    ]
+
+
+def phase_dryrun_card() -> list[dict]:
+    """(b) The dry-run held to the card: each cell dry-run at a 1x1 mesh over
+    a one-rank NCCL group, then its args drawn on cuda:0 and the same
+    program run for real; the peak above the phase's start against the
+    prediction, the counter's FLOPs over the real step against the
+    prediction's, and the roofline bound beside the measured step."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun, roofline, specs
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.costs import CUDA_BLOCK, CostCounter
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    rows = []
+    try:
+        one = M.MeshSpec(("data", "model"), (1, 1))
+        dm = M.device_mesh(one, "cuda")
+        for arch, cell, kw in dryrun_card_cells():
+            build = (specs.build_stgnn_train if arch.family == "stgnn" else
+                     specs.build_lm_decode)
+            prog = build(arch, cell, one, **kw)
+            t0 = time.perf_counter()
+            pred = dryrun.count_cell(arch, cell, one, dm, block=CUDA_BLOCK, **kw)
+            dry_s = time.perf_counter() - t0
+            rec = dryrun.record({"arch": arch.id, "shape": cell.name, "mesh": "1x1",
+                                 "chips": 1}, prog, pred,
+                                dryrun.argument_bytes(prog, one, CUDA_BLOCK),
+                                arch.lm.dtype if arch.lm is not None else "float32")
+            terms = roofline.roofline_terms(rec)
+            cublas_ready()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            base_req = torch.cuda.memory_stats()["requested_bytes.all.current"]
+            args = specs.place_args(prog, dm, specs.random_local("cuda", SEED))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out = prog.fn(*args)
+            torch.cuda.synchronize()
+            measured = torch.cuda.max_memory_allocated() - base
+            # the bytes the ops asked for, before the allocator's block slack
+            requested = torch.cuda.memory_stats()["requested_bytes.all.peak"] - base_req
+            first = tree_first(out)
+            check(bool(torch.isfinite(first).all()), f"{prog.name}: non-finite output")
+            del out, first
+            counter = CostCounter(block=CUDA_BLOCK)
+            with counter:
+                out = prog.fn(*args)
+            del out
+            ms = median_ms(lambda: prog.fn(*args), reps=3, warmup=0)
+            bound_ms = terms["step_lower_bound_s"] * 1e3
+            gap = measured - pred.peak
+            row = {"cell": prog.name, "predicted_peak": pred.peak, "measured_peak": measured,
+                   "requested_peak": requested, "peak_gap": gap, "predicted_flops": pred.flops,
+                   "counted_flops": counter.costs.flops, "bytes": pred.bytes,
+                   "bound_ms": bound_ms, "dominant": terms["dominant"], "step_ms": ms,
+                   "ratio": ms / bound_ms, "dry_run_s": dry_s}
+            rows.append(row)
+            log(f"dry-run at 1x1: {prog.name}: peak predicted {pred.peak} measured "
+                f"{measured} bytes ({gap / measured * 100:+.2f} %; requested by the "
+                f"ops {requested}, {(requested - pred.peak) / measured * 100:+.2f} %); "
+                f"flops predicted "
+                f"{pred.flops:.6e} counted over the real step {counter.costs.flops:.6e}; "
+                f"bytes/step {pred.bytes:.6e}; roofline bound {bound_ms:.4f} ms "
+                f"({terms['dominant']}); measured step {ms:.4f} ms = {ms / bound_ms:.2f}x "
+                f"the bound (fraction {bound_ms / ms:.4f}); dry-run {dry_s:.1f} s")
+            check(counter.costs.flops == pred.flops,
+                  f"{prog.name}: predicted flops {pred.flops} != counted {counter.costs.flops}")
+            check(abs(gap) <= DRYRUN_PEAK_RTOL * measured,
+                  f"{prog.name}: predicted peak {pred.peak} vs measured {measured}")
+            del args
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return rows
+
+
+def cublas_ready() -> None:
+    """The persistent cuBLAS and cuBLASLt workspaces allocated: the first
+    matmul of a process on a stream allocates them from the caching
+    allocator and holds them until exit, so a step measured before them
+    would carry them (the cost counter, like the step itself, does not
+    allocate them again)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        a = torch.ones(64, 64, device="cuda", dtype=dtype)
+        (a @ a).sum().item()
+        torch.addmm(a[0], a, a).sum().item()
+        torch.bmm(a[None], a[None]).sum().item()
+    torch.cuda.synchronize()
+
+
+def tree_first(tree):
+    """The first tensor of a step's output, as a plain tensor."""
+    while isinstance(tree, (tuple, list, dict)):
+        tree = next(iter(tree.values())) if isinstance(tree, dict) else tree[0]
+    return tree.full_tensor() if hasattr(tree, "full_tensor") else tree
+
+
+def phase_dryrun() -> None:
+    t0 = time.perf_counter()
+    out_dir = os.path.join(ROOT, "build", "dryrun")
+    os.makedirs(out_dir, exist_ok=True)
+    phase_dryrun_meshes(out_dir)
+    phase_dryrun_card()
+    log(f"dry-run: phase wall {time.perf_counter() - t0:.1f} s")
+
+
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3177,6 +3406,16 @@ def main() -> int:
     lm_launches = {k.__name__: k.launches for k in counters}
     log(f"LM family path launches: {lm_launches} (0 expected: no kernel on this path)")
     check(not any(lm_launches.values()), "a kernel launched on the LM family path")
+
+    # The launch tooling: counts from 0 just before, read just after; the
+    # dry-run's cells use the plain gather and hops (use_pallas=False, as the
+    # JAX package's cells), so no kernel runs on this path.
+    for kernel in counters:
+        kernel.launches = 0
+    phase_dryrun()
+    dry_launches = {k.__name__: k.launches for k in counters}
+    log(f"dry-run path launches: {dry_launches} (0 expected: no kernel on this path)")
+    check(not any(dry_launches.values()), "a kernel launched on the dry-run path")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -22,17 +22,25 @@ gradients all-reduced before AdamW):
 rank keeps on its device; :func:`local_time_range` the rows it OWNS (the
 shards partition the series, so the exchange writes each row exactly once).
 
-The JAX package's ``data_axes``, ``batch_sharding`` and ``series_sharding``
-describe XLA meshes and ``NamedSharding``s, which have no counterpart here:
-a rank holds a plain tensor of its resident rows, and the process group
-(:func:`process_info`) takes the mesh's place.  :func:`dp_size` reads the
-group's size instead of a mesh's data axes.
+:class:`MeshSpec`, :class:`PartitionSpec` and :class:`NamedSharding` are the
+port's mesh and sharding vocabulary: pure data that the launcher's rules
+(``launch/mesh.py``, ``launch/sharding.py``) build and that a model reads
+through :func:`constrain` (DTensor programs only; a plain tensor passes
+through).  :func:`data_axes`, :func:`series_sharding` and
+:func:`batch_sharding` give the JAX package's shardings on a mesh
+(``.placements(device_mesh)`` turns one into DTensor placements); the
+dry-run's cells read them.  The training path itself holds plain tensors: a
+rank keeps its resident rows, and the process group (:func:`process_info`)
+takes the mesh's place, so :func:`dp_size` reads the group's size instead
+of a mesh's data axes.
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import enum
 import os
+import sys
 
 import numpy as np
 import torch
@@ -41,10 +49,157 @@ import torch.distributed as dist
 from repro_torch.core.windows import WindowSpec
 
 
+# ------------------------------------------------------ meshes and shardings
+@dataclasses.dataclass(frozen=True)
+class MeshSpec:
+    """Named mesh axes and their sizes, major to minor."""
+
+    axis_names: tuple[str, ...]
+    sizes: tuple[int, ...]
+
+    def __post_init__(self):
+        if len(self.axis_names) != len(self.sizes):
+            raise ValueError(f"{self.axis_names} vs {self.sizes}")
+
+    @property
+    def shape(self) -> dict[str, int]:
+        """``{axis: size}`` in axis order, as ``jax.sharding.Mesh.shape``."""
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def label(self) -> str:
+        """``"16x16"``: the dry-run records' ``mesh`` field."""
+        return "x".join(str(s) for s in self.sizes)
+
+
+def as_spec(mesh) -> MeshSpec:
+    """A :class:`MeshSpec` for a spec or a named ``DeviceMesh``."""
+    if isinstance(mesh, MeshSpec):
+        return mesh
+    return MeshSpec(tuple(mesh.mesh_dim_names), tuple(int(s) for s in mesh.shape))
+
+
+class PartitionSpec(tuple):
+    """Per-dim mesh axes of a tensor: ``P(None, "model")``, ``P(("pod",
+    "data"))``; trailing dims not named are replicated.  A group of one
+    name is that name and an empty group is None, as JAX canonicalises
+    them."""
+
+    def __new__(cls, *entries):
+        def canon(e):
+            if isinstance(e, (tuple, list)):
+                return (e[0] if len(e) == 1 else None) if len(e) < 2 else tuple(e)
+            return e
+        return super().__new__(cls, tuple(canon(e) for e in entries))
+
+    def __repr__(self):
+        return f"P{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh (the JAX class of the same name)."""
+
+    mesh: MeshSpec
+    spec: PartitionSpec
+
+    def placements(self, device_mesh) -> tuple:
+        return to_placements(self.spec, device_mesh)
+
+
+def to_placements(spec, mesh) -> tuple:
+    """DTensor placements, one per mesh dim, for ``spec`` on ``mesh``.
+
+    A tensor dim named by several axes (``("pod", "data")``) is ``Shard(d)``
+    on each of those mesh dims; DTensor splits it major-to-minor in mesh-dim
+    order, which is JAX's order when the names come in the mesh's own order
+    (they always do here).  Any other order raises.
+    """
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = as_spec(mesh).axis_names
+    sizes = as_spec(mesh).sizes
+    out: list = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"{spec}: axes {axes} are not in mesh order {names}")
+        for i in idx:
+            if out[i] != Replicate():
+                raise ValueError(f"{spec}: mesh axis {names[i]!r} used twice")
+            if sizes[i] > 1:  # one slot holds the whole dim: replicated
+                out[i] = Shard(d)
+    return tuple(out)
+
+
+def constrain(x, hint: NamedSharding | None):
+    """Redistribute a DTensor to ``hint``'s placements (the JAX package's
+    ``with_sharding_constraint``); no hint or a plain tensor: ``x``."""
+    from torch.distributed.tensor import DTensor
+
+    if hint is None or not isinstance(x, DTensor):
+        return x
+    return x.redistribute(x.device_mesh, hint.placements(x.device_mesh))
+
+
+def minor_split(t):
+    """A DTensor with its dim 0 split over the minor one of the mesh axes
+    that split it (``("pod", "data")`` -> ``"data"``): DTensor's row
+    gathers and reshapes take one mesh axis a dim.  Anything else: ``t``."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(t, DTensor):
+        return t
+    split = [i for i, p in enumerate(t.placements) if p == Shard(0)]
+    if len(split) < 2:
+        return t
+    return t.redistribute(t.device_mesh, [Replicate() if i in split[:-1] else p
+                                          for i, p in enumerate(t.placements)])
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor.  Reads ``DTensor`` only once its module
+    is loaded (no DTensor can exist before), so a plain path pays one dict
+    lookup and never imports it."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
 class Placement(enum.Enum):
     REPLICATED = "replicated"
     PARTITIONED = "partitioned"
     ONDEMAND = "ondemand"
+
+
+def data_axes(mesh) -> tuple[str, ...]:
+    """Axes that carry data parallelism (everything named pod/data)."""
+    return tuple(a for a in as_spec(mesh).axis_names if a in ("pod", "data"))
+
+
+def series_sharding(mesh, placement: Placement) -> NamedSharding:
+    """Sharding of the resident series [T, N, F] (or token stream [T])."""
+    if placement is Placement.REPLICATED:
+        return NamedSharding(as_spec(mesh), P())
+    # Time axis sharded across the data-parallel axes; nodes/features replicated.
+    return NamedSharding(as_spec(mesh), P(data_axes(mesh)))
+
+
+def batch_sharding(mesh, *, pure_dp: bool = False) -> NamedSharding:
+    """Sharding of per-step batched tensors (leading batch dim).
+
+    ``pure_dp=True`` reproduces the paper's scheme on the fixed production
+    mesh: batch sharded over EVERY axis (each device is one DDP worker,
+    params fully replicated).  Otherwise batch shards over the data axes only
+    and the model axis is free for TP.
+    """
+    axes = as_spec(mesh).axis_names if pure_dp else data_axes(mesh)
+    return NamedSharding(as_spec(mesh), P(tuple(axes)))
 
 
 def process_info() -> tuple[int, int]:

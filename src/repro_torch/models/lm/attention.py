@@ -15,12 +15,28 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.distributed import is_dtensor
+from repro_torch.loops import trips
+
 NEG_INF = -1e30
 
 
 def _grouped(q, n_kv):
     b, s, h, d = q.shape
     return q.reshape(b, s, n_kv, h // n_kv, d)
+
+
+def zero_pad(x, dim: int, before: int = 0, after: int = 0):
+    """``x`` with ``before`` and ``after`` zero rows along ``dim``: what
+    ``F.pad`` gives, as one ``cat`` (torch 2.11's DTensor rule for
+    ``constant_pad_nd`` fails, so the dry-run's sharded cells need this
+    form; the values are the same)."""
+    shape = list(x.shape)
+    parts = []
+    for n in (before, after):
+        shape[dim] = n
+        parts.append(x.new_zeros(shape) if n else None)
+    return torch.cat([t for t in (parts[0], x, parts[1]) if t is not None], dim=dim)
 
 
 def full_attention(q, k, v, *, causal: bool = True, window: int | None = None,
@@ -72,7 +88,7 @@ def blockwise_attention(q, k, v, *, causal: bool = True, window: int | None = No
         m = torch.full((b, q_chunk, n_kv, g), NEG_INF, dtype=torch.float32, device=dev)
         l = torch.zeros((b, q_chunk, n_kv, g), dtype=torch.float32, device=dev)
         acc = torch.zeros((b, q_chunk, n_kv, g, d), dtype=torch.float32, device=dev)
-        for ki in range(nk):
+        for ki in trips(nk):
             k_blk = k[:, ki * kv_chunk:(ki + 1) * kv_chunk]
             v_blk = v[:, ki * kv_chunk:(ki + 1) * kv_chunk]
             s_blk = torch.einsum("bqhgd,bkhd->bqhgk", qg, k_blk.float()) * scale
@@ -109,9 +125,8 @@ def banded_attention(q, k, v, *, window: int, q_chunk: int = 512):
                          f"multiple of q_chunk: S={s}, q_chunk={q_chunk}")
     nq = s // q_chunk
     band = window + q_chunk  # worst-case KV extent one q chunk can see
-    pad = (0, 0, 0, 0, band, 0)
-    kp = torch.nn.functional.pad(k, pad)
-    vp = torch.nn.functional.pad(v, pad)
+    kp = zero_pad(k, 1, band)
+    vp = zero_pad(v, 1, band)
     outs = []
     for qi in range(nq):
         qc = q[:, qi * q_chunk:(qi + 1) * q_chunk]
@@ -181,3 +196,47 @@ def paged_view(pool, paged: PagedTables):
 def paged_write(pool, paged: PagedTables, new) -> None:
     """Write each lane's new token row at its (physical block, offset)."""
     pool[paged.where] = new.to(pool.dtype)
+
+
+def write_token(cache, pos, new, rows=None) -> None:
+    """``cache[b, pos[b]] = new[b]`` for every lane ``b``, in place.
+
+    ``cache``: ``[B, S, ...]``; ``pos``: ``[B]``; ``new``: ``[B, ...]``;
+    ``rows``: ``arange(B)`` on the cache's device, made once by a caller
+    that writes several caches.  A DTensor cache (the dry-run's sharded
+    decode cells) is written shard by shard, as XLA partitions the JAX
+    package's ``.at[].set``: ``pos`` and ``new`` take the cache's batch
+    layout, and each shard writes the lanes whose position falls inside its
+    slice of S (the others write their own old row back), so no shard leaves
+    its place.
+    """
+    if not is_dtensor(cache):
+        if rows is None:
+            rows = torch.arange(cache.shape[0], device=cache.device)
+        cache[rows, pos] = new.to(cache.dtype)
+        return
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = cache.device_mesh
+    pl = cache.placements
+    batch_pl = [Shard(0) if p == Shard(0) else Replicate() for p in pl]
+
+    def local(t):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        return t.redistribute(mesh, batch_pl).to_local()
+
+    pos_l, new_l = local(pos), local(new)
+    cache_l = cache.to_local()
+    coord = mesh.get_coordinate()
+    s_l = cache_l.shape[1]
+    shard = 0
+    for i, p in enumerate(pl):
+        if p == Shard(1):
+            shard = shard * mesh.size(i) + coord[i]
+    rel = pos_l.long() - shard * s_l
+    inside = (rel >= 0) & (rel < s_l)
+    rel = rel.clamp(0, s_l - 1)
+    rows = torch.arange(cache_l.shape[0], device=cache_l.device)
+    keep = inside.reshape((-1,) + (1,) * (new_l.dim() - 1))
+    cache_l[rows, rel] = torch.where(keep, new_l.to(cache_l.dtype), cache_l[rows, rel])

@@ -19,7 +19,8 @@ import math
 import torch
 
 from repro_torch.models.lm.attention import (NEG_INF, blockwise_attention, full_attention,
-                                              paged_tables, paged_view, paged_write)
+                                              paged_tables, paged_view, paged_write,
+                                              write_token, zero_pad)
 from repro_torch.models.lm.config import LMConfig
 from repro_torch.models.lm.layers import Draw, apply_rope, init_linear, linear, rms_norm
 
@@ -71,7 +72,7 @@ def mla_attention(p, cfg: LMConfig, x, positions, *, blockwise: bool = False):
     k = torch.cat([kn, k_pe[:, :, None, :].expand(qr.shape)], dim=-1)
     q = torch.cat([qn, qr], dim=-1)
     # v's head dim may differ from the qk head dim: pad v for the shared path
-    vp = torch.nn.functional.pad(v, (0, q.shape[-1] - m.v_head_dim))
+    vp = zero_pad(v, -1, after=q.shape[-1] - m.v_head_dim)
     fn = blockwise_attention if blockwise else full_attention
     out = fn(q, k, vp, causal=True)
     y = linear(p["wo"], out[..., :m.v_head_dim].reshape(b, s, -1))
@@ -95,8 +96,8 @@ def mla_decode(p, cfg: LMConfig, x1, ckv_cache, kpe_cache, lengths, *, paged=Non
     c_new, kpe_new = _project_ckv(p, cfg, x1, pos)
     if paged is None:
         rows = torch.arange(b, device=x1.device)
-        ckv_cache[rows, lengths] = c_new[:, 0].to(ckv_cache.dtype)
-        kpe_cache[rows, lengths] = kpe_new[:, 0].to(kpe_cache.dtype)
+        write_token(ckv_cache, lengths, c_new[:, 0], rows)
+        write_token(kpe_cache, lengths, kpe_new[:, 0], rows)
         ckv, kpe = ckv_cache, kpe_cache
     else:
         paged = paged_tables(paged, lengths)

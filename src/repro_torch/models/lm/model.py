@@ -21,6 +21,12 @@ decode step allocates no second copy of the pool.  Train mode (``forward``,
 ``backbone``) has no cache and writes nothing in place, so autograd runs
 through it; ``loss_fn`` trains the LM archs and ST-LLM trains its node
 tokens through ``backbone``.
+
+``shardings`` (every public function): the launcher's activation hints
+(``launch/specs.act_hints``), for the dry-run's DTensor programs.  Each hint
+redistributes a DTensor activation to its placements, as the JAX package's
+``with_sharding_constraint`` pins; plain tensors pass through, and without
+hints nothing changes.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.distributed import constrain, is_dtensor, minor_split
 from repro_torch.device import resolve_device
 from repro_torch.models.lm import rglru, rwkv6
 from repro_torch.models.lm.attention import (
@@ -42,6 +49,7 @@ from repro_torch.models.lm.attention import (
     paged_tables,
     paged_view,
     paged_write,
+    write_token,
 )
 from repro_torch.models.lm.config import LMConfig
 from repro_torch.models.lm.layers import (apply_rope, init_linear, init_mlp,
@@ -60,6 +68,14 @@ _F32_LEAVES = ("lam", "router", "w0", "u")
 
 def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
+
+
+def _constrain(x, shardings, key):
+    """``x`` redistributed to the hint ``shardings[key]`` when it is a
+    DTensor (``core.distributed.constrain``); no hints: ``x``."""
+    if shardings is None:
+        return x
+    return constrain(x, shardings.get(key))
 
 
 # ------------------------------------------------------------------ stage plan
@@ -197,7 +213,7 @@ def compute_copy(params, cfg: LMConfig, device: str | torch.device = "cuda"):
 
 # -------------------------------------------------------------------- mixers
 def _attn_mixer(p, cfg: LMConfig, spec: LayerSpec, x, positions, *, mode,
-                cache=None, lengths=None, paged=None):
+                cache=None, lengths=None, paged=None, shardings=None):
     """Returns (out, cache).  In decode and prefill the given cache is
     written in place.
 
@@ -219,25 +235,32 @@ def _attn_mixer(p, cfg: LMConfig, spec: LayerSpec, x, positions, *, mode,
                                         blockwise=s > BLOCKWISE_THRESHOLD)
         if mode != "prefill":
             return y, None
-        cache["ckv"][:, :s] = c_kv.to(cache["ckv"].dtype)
-        cache["kpe"][:, :s] = k_pe.to(cache["kpe"].dtype)
+        cache["ckv"][:, :s] = _constrain(c_kv.to(cache["ckv"].dtype), shardings, "ckv")
+        cache["kpe"][:, :s] = _constrain(k_pe.to(cache["kpe"].dtype), shardings, "ckv")
         return y, cache
 
     a = p["attn"]
-    q = linear(a["wq"], x).reshape(b, s, cfg.n_heads, hd)
-    k = linear(a["wk"], x).reshape(b, s, cfg.n_kv_heads, hd)
-    v = linear(a["wv"], x).reshape(b, s, cfg.n_kv_heads, hd)
+    # whole heads on every device before the head split (a DTensor view
+    # cannot split a dim sharded unevenly across heads)
+    q = _constrain(linear(a["wq"], x), shardings, "q").reshape(b, s, cfg.n_heads, hd)
+    k = _constrain(linear(a["wk"], x), shardings, "kvh").reshape(b, s, cfg.n_kv_heads, hd)
+    v = _constrain(linear(a["wv"], x), shardings, "kvh").reshape(b, s, cfg.n_kv_heads, hd)
     if cfg.pos == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    rows = torch.arange(b, device=x.device)
-
+    if mode == "prefill":
+        # compute-path q/k/v stay batch-sharded (the S-sharded cache write
+        # must not pull its layout onto them)
+        q = _constrain(q, shardings, "qkv")
+        k = _constrain(k, shardings, "qkv")
+        v = _constrain(v, shardings, "qkv")
     if mode == "decode":
+        rows = torch.arange(b, device=x.device)
         kc, vc = cache["k"], cache["v"]
         if window is not None:  # ring buffer of size window
             slot = lengths % window
-            kc[rows, slot] = k[:, 0].to(kc.dtype)
-            vc[rows, slot] = v[:, 0].to(vc.dtype)
+            write_token(kc, slot, k[:, 0], rows)
+            write_token(vc, slot, v[:, 0], rows)
             n_valid = torch.clamp(lengths + 1, max=window)
             out = _ring_decode(q, kc, vc, n_valid)
         elif paged is not None:
@@ -250,10 +273,11 @@ def _attn_mixer(p, cfg: LMConfig, spec: LayerSpec, x, positions, *, mode,
             out = decode_attention(q, paged_view(kc, paged), paged_view(vc, paged),
                                    lengths + 1)
         else:
-            kc[rows, lengths] = k[:, 0].to(kc.dtype)
-            vc[rows, lengths] = v[:, 0].to(vc.dtype)
+            write_token(kc, lengths, k[:, 0], rows)
+            write_token(vc, lengths, v[:, 0], rows)
             out = decode_attention(q, kc, vc, lengths + 1)
-        return linear(a["wo"], out.reshape(b, 1, -1)), {"k": kc, "v": vc}
+        out = _constrain(out.reshape(b, 1, -1), shardings, "q")
+        return linear(a["wo"], out), {"k": kc, "v": vc}
 
     # train / prefill
     if window is not None and s > 2 * window:
@@ -265,21 +289,26 @@ def _attn_mixer(p, cfg: LMConfig, spec: LayerSpec, x, positions, *, mode,
                                   kv_chunk=min(cfg.kv_chunk, s))
     else:
         out = full_attention(q, k, v, causal=True, window=window)
-    y = linear(a["wo"], out.reshape(b, s, -1))
+    # pinned as q was, so that the backward's head split meets whole heads
+    y = linear(a["wo"], _constrain(out.reshape(b, s, -1), shardings, "q"))
 
     if mode != "prefill":
         return y, None
     kc, vc = cache["k"], cache["v"]
     if window is not None:
-        tail = min(s, window)
-        slots = positions[:, -tail:] % window  # [B, tail]
-        kc.zero_()
-        vc.zero_()
-        kc[rows[:, None], slots] = k[:, -tail:].to(kc.dtype)
-        vc[rows[:, None], slots] = v[:, -tail:].to(vc.dtype)
+        # the last min(s, window) positions land in ring slot position %
+        # window; prefill positions are 0..s-1, so that is a roll of the tail
+        # by s % window (a permutation, written whole, no indexed write)
+        for c, new in ((kc, k), (vc, v)):
+            if s >= window:
+                c.copy_(torch.roll(new[:, -window:], shifts=s % window, dims=1))
+            else:
+                c.zero_()
+                c[:, :s] = new.to(c.dtype)
     else:
-        kc[:, :s] = k.to(kc.dtype)
-        vc[:, :s] = v.to(vc.dtype)
+        # written in the cache's own layout, so the write is a local slice
+        kc[:, :s] = _constrain(k.to(kc.dtype), shardings, "kv")
+        vc[:, :s] = _constrain(v.to(vc.dtype), shardings, "kv")
     return y, {"k": kc, "v": vc}
 
 
@@ -295,7 +324,7 @@ def _ring_decode(q1, k_ring, v_ring, n_valid):
 
 # --------------------------------------------------------------------- layers
 def _layer_apply(p, cfg: LMConfig, spec: LayerSpec, x, positions, *, mode,
-                 cache=None, lengths=None, paged=None):
+                 cache=None, lengths=None, paged=None, shardings=None):
     """One block.  Returns (x, new_cache, aux_loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, p["norm1"].to(x.dtype), cfg.norm_eps)
@@ -307,7 +336,8 @@ def _layer_apply(p, cfg: LMConfig, spec: LayerSpec, x, positions, *, mode,
                                         cache=None if mode == "train" else cache["tm"])
     else:
         out, new_cache = _attn_mixer(p, cfg, spec, h, positions, mode=mode,
-                                     cache=cache, lengths=lengths, paged=paged)
+                                     cache=cache, lengths=lengths, paged=paged,
+                                     shardings=shardings)
     x = x + out
     h2 = rms_norm(x, p["norm2"].to(x.dtype), cfg.norm_eps)
     if spec.ffn == "rwkv":
@@ -315,7 +345,8 @@ def _layer_apply(p, cfg: LMConfig, spec: LayerSpec, x, positions, *, mode,
                                            cache=None if mode == "train" else cache["cm"])
         new_cache = None if mode == "train" else {"tm": new_cache, "cm": cm_cache}
     elif spec.ffn == "moe":
-        out2, aux = moe_ffn(p["moe"], h2, cfg.moe, cfg.mlp)
+        out2, aux = moe_ffn(p["moe"], h2, cfg.moe, cfg.mlp,
+                            groups=(shardings or {}).get("moe_groups", 1))
     else:
         out2 = mlp(p["mlp"], h2, cfg.mlp)
     return x + out2, new_cache, aux
@@ -327,7 +358,7 @@ def _write(dst: torch.Tensor, src: torch.Tensor) -> None:
 
 
 def _run_stages(params, cfg: LMConfig, x, positions, *, mode, caches=None,
-                lengths=None, remat=False, paged=None):
+                lengths=None, remat=False, paged=None, shardings=None):
     """Each stage's repeats in order; a layer's new cache is written into its
     slice of the stacked cache.  Returns (x, caches, aux_total): the sum of
     the layers' auxiliary losses (the MoE load-balancing terms), float32.
@@ -350,7 +381,8 @@ def _run_stages(params, cfg: LMConfig, x, positions, *, mode, caches=None,
                     sub_c = None if lc is None else lc[f"sub{i}"]
                     x, nc, aux = _layer_apply(lp[f"sub{i}"], cfg, sp, x, positions,
                                               mode=mode, cache=sub_c, lengths=lengths,
-                                              paged=paged)
+                                              paged=paged, shardings=shardings)
+                    x = _constrain(x, shardings, "act")
                     if sub_c is not None:
                         tree_map(_write, sub_c, nc)
                     aux_sum = aux_sum + aux
@@ -363,6 +395,24 @@ def _run_stages(params, cfg: LMConfig, x, positions, *, mode, caches=None,
 
 
 # ----------------------------------------------------------------- public API
+def _rows(table, idx):
+    """``table[idx]``.  For DTensor indices it is an embedding lookup
+    (``F.embedding``, whose DTensor rule handles a vocab-split table and
+    whose backward is a dense one, where the indexing's backward is an
+    ``index_put``); indices whose dim 0 is split over several mesh axes
+    (``("pod", "data")``) are first split over the minor one only, since
+    DTensor's lookup takes one mesh axis a dim, and the ``"act"`` hint
+    splits the rows again, locally."""
+    if not is_dtensor(idx):
+        return table[idx]
+    from torch.distributed.tensor import Replicate
+
+    out = torch.nn.functional.embedding(minor_split(idx), table)
+    # a vocab-split table gives a masked partial sum: reduce it here, once
+    return out.redistribute(out.device_mesh, [Replicate() if p.is_partial() else p
+                                              for p in out.placements])
+
+
 def embed_tokens(params, cfg: LMConfig, tokens, *, prefix_embeds=None,
                  pos_offset=None):
     """tokens: [B, S] int -> (x [B, S(+P), d] in compute dtype, positions).
@@ -371,7 +421,7 @@ def embed_tokens(params, cfg: LMConfig, tokens, *, prefix_embeds=None,
     embeddings) are prepended to the token embeddings.
     """
     cdtype = _dtype(cfg.dtype)
-    x = params["embed"][tokens].to(cdtype)
+    x = _rows(params["embed"], tokens).to(cdtype)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(cdtype), x], dim=1)
     b, s, _ = x.shape
@@ -381,7 +431,7 @@ def embed_tokens(params, cfg: LMConfig, tokens, *, prefix_embeds=None,
     else:
         positions = pos_offset[:, None] + steps
     if cfg.pos == "learned":
-        x = x + params["pos"][positions].to(cdtype)
+        x = x + _rows(params["pos"], positions).to(cdtype)
     return x, positions
 
 
@@ -396,15 +446,18 @@ def logits_fn(params, cfg: LMConfig, x):
     return logits
 
 
-def forward(params, cfg: LMConfig, tokens, *, prefix_embeds=None):
+def forward(params, cfg: LMConfig, tokens, *, prefix_embeds=None, remat=False,
+            shardings=None):
     """Training forward.  Returns (logits [B, S(+P), V], aux_loss)."""
     x, positions = embed_tokens(params, cfg, tokens, prefix_embeds=prefix_embeds)
-    x, _, aux = _run_stages(params, cfg, x, positions, mode="train")
+    x = _constrain(x, shardings, "act")
+    x, _, aux = _run_stages(params, cfg, x, positions, mode="train", remat=remat,
+                            shardings=shardings)
     x = rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
-    return logits_fn(params, cfg, x), aux
+    return _constrain(logits_fn(params, cfg, x), shardings, "logits"), aux
 
 
-def backbone(params, cfg: LMConfig, x_embeds, *, remat=False):
+def backbone(params, cfg: LMConfig, x_embeds, *, remat=False, shardings=None):
     """Run the block stack on precomputed embeddings (ST-LLM's node tokens).
     x_embeds: [B, S, d] -> (hidden [B, S, d], aux).
 
@@ -414,21 +467,35 @@ def backbone(params, cfg: LMConfig, x_embeds, *, remat=False):
     """
     b, s, _ = x_embeds.shape
     positions = torch.arange(s, device=x_embeds.device)[None].expand(b, s)
-    x = x_embeds.to(_dtype(cfg.dtype))
-    x, _, aux = _run_stages(params, cfg, x, positions, mode="train", remat=remat)
+    x = _constrain(x_embeds.to(_dtype(cfg.dtype)), shardings, "act")
+    x, _, aux = _run_stages(params, cfg, x, positions, mode="train", remat=remat,
+                            shardings=shardings)
     return rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps), aux
 
 
-def loss_fn(params, cfg: LMConfig, tokens_in, labels, *, prefix_embeds=None):
+def loss_fn(params, cfg: LMConfig, tokens_in, labels, *, prefix_embeds=None,
+            remat=False, shardings=None):
     """Next-token cross-entropy (+ MoE aux).  labels: [B, S] (-1 = ignore).
-    Returns (loss + aux, {"nll": loss, "aux": aux})."""
-    logits, aux = forward(params, cfg, tokens_in, prefix_embeds=prefix_embeds)
+    Returns (loss + aux, {"nll": loss, "aux": aux}).
+
+    With ``shardings`` the gold logit is a one-hot select, as the JAX
+    package takes it: it stays local to a vocab-sharded logits axis, where a
+    gather along that axis would all-gather the [B, S, V] float32 logits.
+    Both give the same value; the gather makes no [B, S, V] mask.
+    """
+    logits, aux = forward(params, cfg, tokens_in, prefix_embeds=prefix_embeds,
+                          remat=remat, shardings=shardings)
     if prefix_embeds is not None:
         logits = logits[:, prefix_embeds.shape[1]:]
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     valid = labels >= 0
-    gold = torch.gather(logits, -1, torch.where(valid, labels, 0).long()[..., None])[..., 0]
+    if shardings is None:
+        gold = torch.gather(logits, -1,
+                            torch.where(valid, labels, 0).long()[..., None])[..., 0]
+    else:
+        hit = labels[..., None] == torch.arange(logits.shape[-1], device=logits.device)
+        gold = torch.sum(torch.where(hit, logits, 0.0), dim=-1)
     nll = torch.where(valid, lse - gold, 0.0)
     loss = torch.sum(nll) / torch.clamp(torch.sum(valid), min=1)
     return loss + aux, {"nll": loss, "aux": aux}
@@ -561,11 +628,14 @@ def scatter_cache_paged(cache, sub, slots, phys, *, block_size: int, mask):
     return tree_map(put, mask, cache, sub)
 
 
-def prefill(params, cfg: LMConfig, tokens, cache, *, prefix_embeds=None):
+def prefill(params, cfg: LMConfig, tokens, cache, *, prefix_embeds=None,
+            shardings=None):
     """Fill ``cache`` (in place) from a prompt (after ``prefix_embeds``, when
     given).  Returns (last-token logits, cache, lengths)."""
     x, positions = embed_tokens(params, cfg, tokens, prefix_embeds=prefix_embeds)
-    x, cache, _ = _run_stages(params, cfg, x, positions, mode="prefill", caches=cache)
+    x = _constrain(x, shardings, "act")
+    x, cache, _ = _run_stages(params, cfg, x, positions, mode="prefill", caches=cache,
+                              shardings=shardings)
     x = rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
     logits = logits_fn(params, cfg, x[:, -1:])[:, 0]
     lengths = torch.full((tokens.shape[0],), x.shape[1], dtype=torch.long,
@@ -573,7 +643,8 @@ def prefill(params, cfg: LMConfig, tokens, cache, *, prefix_embeds=None):
     return logits, cache, lengths
 
 
-def decode_step(params, cfg: LMConfig, token, cache, lengths, *, paged=None):
+def decode_step(params, cfg: LMConfig, token, cache, lengths, *, paged=None,
+                shardings=None):
     """One decode step.  token: [B, 1], lengths: [B] -> (logits [B, V],
     cache), the cache written in place.
 
@@ -586,9 +657,11 @@ def decode_step(params, cfg: LMConfig, token, cache, lengths, *, paged=None):
     has the contiguous cache's shape at every block size.
     """
     x, positions = embed_tokens(params, cfg, token, pos_offset=lengths)
+    x = _constrain(x, shardings, "act")
     if paged is not None:  # the write positions, once for every layer
         paged = paged_tables(paged, lengths)
     x, cache, _ = _run_stages(params, cfg, x, positions, mode="decode",
-                              caches=cache, lengths=lengths, paged=paged)
+                              caches=cache, lengths=lengths, paged=paged,
+                              shardings=shardings)
     x = rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
     return logits_fn(params, cfg, x[:, 0]), cache

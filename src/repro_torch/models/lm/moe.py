@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.distributed import is_dtensor
 from repro_torch.models.lm.config import MoEConfig
 from repro_torch.models.lm.layers import Draw, gelu, init_linear, init_mlp, mlp
 
@@ -72,13 +73,14 @@ def _dispatch_indices(top_ix: torch.Tensor, n_experts: int, capacity: int):
     e_flat = top_ix.reshape(-1)  # token-major: token i slot j -> i*k + j
     order = torch.argsort(e_flat, stable=True)  # grouped by expert, FIFO inside
     sorted_e = e_flat[order]
-    counts = torch.zeros(n_experts, dtype=torch.long, device=top_ix.device)
+    # made from the indices (new_zeros / new_full), so a DTensor routing
+    # (the dry-run's sharded cells) writes into DTensors
+    counts = e_flat.new_zeros(n_experts, dtype=torch.long)
     counts.index_add_(0, e_flat, torch.ones_like(e_flat))
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(t * k, device=top_ix.device) - starts[sorted_e]
     col = torch.where(pos < capacity, pos, capacity)  # dropped -> dump column
-    slot_src = torch.full((n_experts, capacity + 1), t * k, dtype=torch.long,
-                          device=top_ix.device)
+    slot_src = order.new_full((n_experts, capacity + 1), t * k, dtype=torch.long)
     slot_src[sorted_e, col] = order
     return slot_src[:, :capacity]
 
@@ -113,6 +115,8 @@ def moe_ffn(p, x: torch.Tensor, moe: MoEConfig, mlp_kind: str, *, groups: int = 
     b, s, d = x.shape
     if groups > 1:
         return _moe_ffn_grouped(p, x, moe, mlp_kind, groups=groups)
+    if is_dtensor(x):
+        return _moe_ffn_sharded(p, x, moe, mlp_kind)
     t, k = b * s, moe.top_k
     xf = x.reshape(t, d)
     probs, top_w, top_ix = _router(p, xf, k)
@@ -136,6 +140,57 @@ def moe_ffn(p, x: torch.Tensor, moe: MoEConfig, mlp_kind: str, *, groups: int = 
     me = probs.mean(0)
     fe = F.one_hot(top_ix, moe.n_experts).float().sum(1).mean(0)
     return y, moe.aux_loss_coef * moe.n_experts * torch.sum(fe * me)
+
+
+def _moe_ffn_sharded(p, x, moe: MoEConfig, mlp_kind: str):
+    """:func:`moe_ffn` in a DTensor program (the dry-run's sharded cells).
+
+    Every device routes all the tokens (the dispatch buffers stay
+    replicated, as in the JAX package's sharded cells) with the same
+    integer dispatch as :func:`moe_ffn`, on local tensors.  The expert
+    weights keep their split over experts (EP) and gather any other; each
+    device runs its own experts' slots and scatter-adds them into a partial
+    output, which one all-reduce over the EP mesh axes completes.
+    """
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = x.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    local = lambda t: t.redistribute(mesh, rep).to_local()
+    b, s, d = x.shape
+    t, k = b * s, moe.top_k
+    xf = local(x).reshape(t, d)
+    probs, top_w, top_ix = _router({"router": {n: local(w) for n, w in p["router"].items()}},
+                                   xf, k)
+    slot_src = _dispatch_indices(top_ix, moe.n_experts, capacity_of(t, moe))
+
+    ep = [i for i, pl in enumerate(p["wi"].placements) if pl == Shard(0)]
+    keep = [Shard(0) if i in ep else Replicate() for i in range(mesh.ndim)]
+    pe = {n: p[n].redistribute(mesh, keep).to_local() for n in ("wi", "wg", "wo")}
+    n_local = pe["wi"].shape[0]
+    coord, shard = mesh.get_coordinate(), 0
+    for i in ep:
+        shard = shard * mesh.size(i) + coord[i]
+    mine = slot_src[shard * n_local:(shard + 1) * n_local]  # [E_local, C]
+
+    token_of = mine // k
+    valid = mine < t * k
+    xe = xf[torch.where(valid, token_of, 0)]
+    w_slot = torch.where(valid, top_w.reshape(-1)[torch.where(valid, mine, 0)], 0.0)
+    ye = _expert_ffn(pe, xe, mlp_kind, "ecd,edf->ecf", "ecf,efd->ecd")
+    contrib = (ye * w_slot[..., None].to(xf.dtype)).reshape(-1, d)
+    yf = torch.zeros((t + 1, d), dtype=xf.dtype, device=xf.device).index_add(
+        0, torch.where(valid, token_of, t).reshape(-1), contrib)
+    y = DTensor.from_local(yf[:t].reshape(b, s, d), mesh,
+                           [Partial() if i in ep else Replicate() for i in range(mesh.ndim)],
+                           run_check=False).redistribute(
+        mesh, [Replicate() if pl.is_partial() else pl for pl in x.placements])
+    if moe.n_shared:
+        y = y + mlp(p["shared"], x, mlp_kind)
+    me = probs.mean(0)
+    fe = F.one_hot(top_ix, moe.n_experts).float().sum(1).mean(0)
+    aux = moe.aux_loss_coef * moe.n_experts * torch.sum(fe * me)
+    return y, DTensor.from_local(aux, mesh, rep, run_check=False)
 
 
 def _moe_ffn_grouped(p, x, moe: MoEConfig, mlp_kind: str, *, groups: int):

@@ -14,9 +14,9 @@ the layer's cache.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels.linear_scan import linear_scan
+from repro_torch.models.lm.attention import zero_pad
 from repro_torch.models.lm.config import LMConfig
 from repro_torch.models.lm.layers import Draw, gelu, init_linear, linear
 
@@ -47,7 +47,7 @@ def _causal_conv1d(p, x):
     """Depthwise causal conv, width W.  x: [B, S, w].  Summed tap by tap in
     the JAX package's order."""
     width = p["conv_w"].shape[0]
-    xp = F.pad(x, (0, 0, width - 1, 0))
+    xp = zero_pad(x, 1, width - 1)
     out = sum(xp[:, i:i + x.shape[1]] * p["conv_w"][i].to(x.dtype)
               for i in range(width))
     return out + p["conv_b"].to(x.dtype)

@@ -1,6 +1,7 @@
 """AdamW with f32 math, a configurable state dtype and global-norm clipping.
 
-State is a tree congruent with params (``m``, ``v``) plus an integer step;
+State is a tree congruent with params (``m``, ``v``) plus an integer step
+(a Python int, or a 0-d integer tensor as the dry-run's cells hold it);
 bias correction is computed in float32 from that step, as in the JAX
 package.  ``state_dtype="bfloat16"`` halves the moment memory.  Updates are
 functional: new tensors come back and the inputs are left as they were.
@@ -64,8 +65,12 @@ def apply_updates(params: Any, grads: Any, state: dict, cfg: AdamConfig,
         grad_norm = global_norm(grads)
         scale = torch.clamp(cfg.grad_clip / torch.clamp(grad_norm, min=1e-12), max=1.0)
     step = state["step"] + 1
-    b1c = float(np.float32(1.0) - np.float32(cfg.b1) ** np.float32(step))
-    b2c = float(np.float32(1.0) - np.float32(cfg.b2) ** np.float32(step))
+    if isinstance(step, torch.Tensor):  # a 0-d int32 counter, as the JAX state
+        b1c = 1.0 - cfg.b1 ** step.float()
+        b2c = 1.0 - cfg.b2 ** step.float()
+    else:
+        b1c = float(np.float32(1.0) - np.float32(cfg.b1) ** np.float32(step))
+        b2c = float(np.float32(1.0) - np.float32(cfg.b2) ** np.float32(step))
     dt = torch_dtype(cfg.state_dtype)
 
     def upd(p, g, m, v):

@@ -60,3 +60,14 @@ def _build(node: Any, it) -> Any:
     if isinstance(node, list):
         return [_build(child, it) for child in node]
     return next(it)
+
+
+def tree_map_with_path(fn: Callable, tree: Any, prefix: str = "") -> Any:
+    """``fn(path, leaf)`` over every leaf, ``path`` as :func:`tree_paths`
+    spells it (``"stages/0/sub0/attn/wq/w"``, the JAX package's
+    ``_path_str``)."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, f"{prefix}{k}/") for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map_with_path(fn, v, f"{prefix}{i}/") for i, v in enumerate(tree)]
+    return fn(prefix.rstrip("/"), tree)

@@ -852,3 +852,80 @@ def test_cuda_fleet_kill_restores_equal_tokens(cuda, temperature):
     res = fleet.results()
     assert [res[r] for r in rids] == [ref[r] for r in ref_rids]
     assert fleet.workers[0].served == len(prompts)
+
+
+# ----------------------------------------------------------- launch tooling
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch_id,shape,placement", [
+    ("pgt-dcrnn-pems-all-la", "train_all_la", "replicated"),
+    ("qwen1.5-4b", "decode_32k", None)])
+def test_cuda_dryrun_on_a_fake_cuda_mesh(cuda, arch_id, shape, placement):
+    """One cell on a fake CUDA mesh of 256 ranks: a record in the JAX
+    schema, the ST-GNN gradients reduced by one all-reduce of the float32
+    parameter bytes, the decode cache written in place."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun, roofline
+
+    kw = {"placement": placement} if placement else {}
+    rec = dryrun.run_cell(arch_id, shape, device="cuda", verbose=False, **kw)
+    assert rec["status"] == "ok", rec.get("error")
+    assert not dist.is_initialized()
+    mem = rec["memory"]
+    assert 0 < mem["argument_bytes"] <= mem["peak_bytes"] < 80 * 2**30
+    assert mem["peak_bytes"] % 512 == 0  # CUDA blocks
+    assert rec["cost"]["flops"] > 0 and rec["chips"] == 256
+    if placement:
+        assert rec["collectives"]["all-reduce"] == 254_468  # 63,617 f32 parameters
+        assert rec["collectives"]["total"] == rec["collectives"]["all-reduce"]
+    else:
+        assert mem["alias_bytes"] > 0
+    assert roofline.summarize([rec])[0]["step_lower_bound_s"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_dry_run_at_one_rank_predicts_the_card(cuda):
+    """At a 1x1 mesh over a one-rank NCCL group: the dry-run's FLOPs equal
+    the counter's over the real step, and its peak is within 10 % of
+    ``max_memory_allocated`` above the args' start."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.costs import CUDA_BLOCK, CostCounter
+
+    arch = get_arch("pgt-dcrnn-pems-all-la")
+    arch = dataclasses.replace(arch, model=dataclasses.replace(arch.model, num_nodes=512))
+    cell = dataclasses.replace(arch.shapes[0], global_batch=8)
+    one = M.MeshSpec(("data", "model"), (1, 1))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        dm = M.device_mesh(one, "cuda")
+        prog = specs.build_stgnn_train(arch, cell, one, series_len=400)
+        pred = dryrun.count_cell(arch, cell, one, dm, block=CUDA_BLOCK, series_len=400)
+        a = torch.ones(64, 64, device="cuda")  # the persistent cuBLAS(Lt) workspaces
+        (a @ a, torch.addmm(a[0], a, a), torch.bmm(a[None], a[None]))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        args = specs.place_args(prog, dm, specs.random_local("cuda", 0))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, loss = prog.fn(*args)
+        torch.cuda.synchronize()
+        measured = torch.cuda.max_memory_allocated() - base
+        assert torch.isfinite(loss.full_tensor())
+        del state, loss
+        counter = CostCounter(block=CUDA_BLOCK)
+        with counter:
+            prog.fn(*args)
+        assert counter.costs.flops == pred.flops
+        assert abs(measured - pred.peak) <= 0.10 * measured, (pred.peak, measured)
+    finally:
+        dist.destroy_process_group()
