@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's twelve main paths through their user entry points, each at
+Drives the port's thirteen main paths through their user entry points, each at
 the full width of a registered arch, with every kernel count set to 0 just
 before a path and read just after it:
 
@@ -56,6 +56,18 @@ before a path and read just after it:
   equal the launcher's single-engine run at the same seeds; the drill then
   runs again at full width in the arch's bf16, its count of equal requests
   (restored and not) recorded;
+- serving over a (data x model) mesh, in a child process with a one-rank
+  NCCL group of its own and a 1x1 mesh over it (one card holds one rank:
+  NCCL refuses two on one device): qwen1.5-4b at full width, contiguous
+  and paged (block 16), and recurrentgemma-2b at full width with
+  ``use_pallas_scan=True``, each through ``ServeEngine(mesh=...)`` and
+  through the unsharded engine on the same weights (drawn into bf16) and
+  the same 8 requests (8 slots, max_len 1,024, 32 new tokens, prompts of
+  128, 256 and 512, odd requests sampled): the sharded tokens must equal
+  the unsharded ones, the cache leaves must be DTensors of the unsharded
+  cache's bytes, and the sharded recurrentgemma-2b run must launch
+  ``linear_scan`` on the RG-LRU's local shards (no other kernel on this
+  path); it prints each sharded and unsharded decode step ms and peak;
 - the measured-dispatch path: ``build_pipeline(..., gather="auto").fit()``
   for 5 steps at the ST-GNN width (its losses equal a ``gather="pallas"``
   run's on the same feed), ``diffusion_conv(impl="auto")`` at the forecast
@@ -163,8 +175,10 @@ before a path and read just after it:
   (a) ``python -m repro_torch.launch.dryrun --device cuda`` in one process
   a cell, six at a time, on fake CUDA meshes of 256 (16x16) and 512
   (2x16x16) ranks: both ST-GNN cells under each placement, qwen1.5-4b's
-  ``train_4k``, ``prefill_32k`` and ``decode_32k`` and
-  deepseek-v2-lite-16b's ``decode_32k``; each record's per-device memory,
+  ``train_4k``, ``prefill_32k`` and ``decode_32k``,
+  deepseek-v2-lite-16b's ``train_4k``, ``prefill_32k`` and ``decode_32k``,
+  h2o-danube-3-4b's ``prefill_32k``, musicgen-large's ``train_4k`` and
+  ``decode_32k`` and rwkv6-1.6b's ``decode_32k``; each record's per-device memory,
   FLOPs, bytes and collectives by kind, and its roofline row (a cell past
   240 s is recorded as failed); then ``--halo-evidence`` on a fake mesh of
   8, which must show 0 data-collective bytes at ``halo=False`` and more at
@@ -200,7 +214,7 @@ launch floor, the same launch at [1, 1, 32]).
 Cuts: the LM training run's token stream is 196 tokens (68 windows of 129:
 one epoch of 6 steps of 8, 7 val windows); the deepseek, qwen1.5-4b and
 fleet serving cells cut traffic only (16 requests, prompts of 128, 256 and
-512 tokens); the checked fleet drill serves the smoke config, whose float32
+512 tokens; 8 requests on the sharded serving path); the checked fleet drill serves the smoke config, whose float32
 is what makes it checkable: a restore computes the next token's logits by a
 prefill instead of a decode step, and in bf16 that other order of roundings
 can flip a near-tie draw (in the JAX package as in the port); the
@@ -1600,6 +1614,151 @@ def phase_sampler_card() -> None:
 
 
 # ------------------------------------------------------- flash attention
+SH_REQUESTS = 8         # sharded serving: 8 requests a run, 8 slots, 32 new tokens
+SH_TIMEOUT_S = 900      # the child's whole run
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def sharded_child(port: int, out_path: str) -> None:
+    """The sharded serving phase's process: a one-rank NCCL group of its own
+    and a 1x1 (data x model) mesh over it.  qwen1.5-4b (contiguous, and
+    paged at block 16) and recurrentgemma-2b (``use_pallas_scan=True``) at
+    full width, each served by ``ServeEngine(mesh=...)`` and by the
+    unsharded engine on the same weights and requests (odd requests
+    sampled); tokens, decode step ms, peak memory and the sharded runs'
+    kernel launches go to ``out_path`` as JSON."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.diffusion_conv.kernel import hop_project
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.linear_scan.kernel import linear_scan
+    from repro_torch.kernels.window_gather.kernel import window_gather
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.models.lm import model as lm
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.tree import tree_leaves
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1, device_id=device)
+    counters = (window_gather, hop_project, linear_scan, flash_attention)
+    mesh = MeshSpec(("data", "model"), (1, 1))
+    runs = []
+    try:
+        for arch in (QW_ARCH, RG_ARCH):
+            cfg = get_arch(arch).lm
+            if arch == RG_ARCH:
+                cfg = dataclasses.replace(cfg, use_pallas_scan=True)
+            # drawn on the card straight into the compute dtype, as the
+            # serving launcher draws them
+            params = lm.init(torch.Generator(device="cuda").manual_seed(SEED),
+                             dataclasses.replace(cfg, param_dtype=cfg.dtype), device="cuda")
+            rng = np.random.default_rng(SEED)
+            prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
+                       for n in rng.choice(QW_PROMPT_LENS, size=SH_REQUESTS)]
+            submit = [dict(SAMPLED, seed=SEED + i) if i % 2 else {}
+                      for i in range(SH_REQUESTS)]
+            layouts = (("contiguous", None), ("paged", RG_BLOCK)) if arch == QW_ARCH \
+                else (("contiguous", None),)
+            for layout, block in layouts:
+                sc = ServeConfig(slots=QW_SLOTS, max_len=QW_MAX_LEN,
+                                 max_new_tokens=QW_NEW_TOKENS, block_size=block,
+                                 pool_blocks=pool_for(QW_SLOTS, max(QW_PROMPT_LENS),
+                                                      QW_NEW_TOKENS, block) if block else None)
+                for sharded in (False, True):
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats()
+                    eng = ServeEngine(params, cfg, sc, mesh=mesh if sharded else None,
+                                      device="cuda")
+                    for k in counters:
+                        k.launches = 0
+                    rids, out, groups, steps, wall = serve_timed(eng, prompts, submit)
+                    plane = eng.planes[0]
+                    leaves = tree_leaves(plane.cache)
+                    runs.append({
+                        "arch": arch, "layout": layout, "sharded": sharded,
+                        "tokens": [list(map(int, out[r])) for r in rids],
+                        "statuses": [eng.router.done[r].status for r in rids],
+                        "decode_ms": statistics.median(steps), "steps": len(steps),
+                        "groups": len(groups),
+                        "prefill_ms": statistics.median(ms for _, ms in groups),
+                        "wall": wall, "peak": torch.cuda.max_memory_allocated(),
+                        "cache_bytes": plane.cache_bytes(),
+                        "dtensor_cache": all(hasattr(t, "placements") for t in leaves),
+                        "mesh": plane.mesh.shape if sharded else None,
+                        "launches": {k.__name__: k.launches for k in counters}})
+                    del eng, plane, leaves
+            del params
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump({"runs": runs, "device": torch.cuda.get_device_name(0)}, f)
+
+
+def phase_sharded_serving(work) -> int:
+    """Serving over a (data x model) mesh: a child process with a one-rank
+    NCCL group (``sharded_child``); the sharded tokens must equal the
+    unsharded engine's, and recurrentgemma-2b's sharded runs must launch
+    ``linear_scan`` on the RG-LRU's local shards.  Returns those launches."""
+    import multiprocessing
+
+    t0 = time.perf_counter()
+    out_path = os.path.join(work, "sharded.json")
+    proc = multiprocessing.get_context("spawn").Process(
+        target=sharded_child, args=(free_port(), out_path))
+    proc.start()
+    proc.join(SH_TIMEOUT_S)
+    if proc.is_alive():
+        proc.terminate()
+        proc.join(10)
+    check(proc.exitcode == 0, f"the sharded serving child exited with {proc.exitcode}")
+    with open(out_path) as f:
+        runs = json.load(f)["runs"]
+    log(f"sharded serving: {QW_ARCH} and {RG_ARCH} at full width, {QW_SLOTS} slots, "
+        f"max_len {QW_MAX_LEN}; CUTS (traffic only): {SH_REQUESTS} requests (prompts "
+        f"from {QW_PROMPT_LENS}, {QW_NEW_TOKENS} new tokens, odd ones sampled "
+        f"{SAMPLED}); the mesh is (data 1 x model 1) over a one-rank NCCL group (one "
+        f"card: every placement is whole, so the DTensor plane runs the same ops)")
+    scan = 0
+    for arch, layout in dict.fromkeys((r["arch"], r["layout"]) for r in runs):
+        plain, shard = (next(r for r in runs if (r["arch"], r["layout"], r["sharded"])
+                             == (arch, layout, s)) for s in (False, True))
+        same = plain["tokens"] == shard["tokens"]
+        log(f"sharded serving {arch} {layout}: decode step {shard['decode_ms']:.3f} ms "
+            f"sharded against {plain['decode_ms']:.3f} ms unsharded (medians of "
+            f"{shard['steps']} and {plain['steps']} steps, host clock to the token pull; "
+            f"{shard['decode_ms'] / plain['decode_ms']:.2f}x); prefill group "
+            f"{shard['prefill_ms']:.1f} against {plain['prefill_ms']:.1f} ms; peak "
+            f"{shard['peak'] / 2**30:.2f} against {plain['peak'] / 2**30:.2f} GiB; cache "
+            f"{shard['cache_bytes']:,} B (DTensor leaves: {shard['dtensor_cache']}); "
+            f"mesh {shard['mesh']}; tokens equal: {same}; sharded launches "
+            f"{shard['launches']}")
+        check(shard["statuses"] == ["ok"] * SH_REQUESTS == plain["statuses"],
+              f"sharded serving {arch} {layout}: statuses")
+        check(shard["dtensor_cache"] and shard["cache_bytes"] == plain["cache_bytes"],
+              f"sharded serving {arch} {layout}: cache not placed")
+        check(same, f"sharded serving {arch} {layout}: tokens differ from the unsharded plane")
+        expect_scan = arch == RG_ARCH
+        check((shard["launches"]["linear_scan"] > 0) == expect_scan,
+              f"sharded serving {arch} {layout}: linear_scan launches "
+              f"{shard['launches']['linear_scan']}")
+        check(not any(v for k, v in shard["launches"].items() if k != "linear_scan"),
+              f"sharded serving {arch} {layout}: another kernel launched")
+        scan += shard["launches"]["linear_scan"]
+    log(f"sharded serving: phase wall {time.perf_counter() - t0:.1f} s")
+    return scan
+
+
 def flash_inputs(gen, b, s, h, hkv, d, dtype):
     """Random q, k, v in the model layout [B, S, heads, D]."""
     return tuple(torch.randn((b, s, n, d), device="cuda", generator=gen).to(dtype)
@@ -2782,8 +2941,8 @@ def phase_lm_serve(profile: bool) -> None:
         drops[kind].append(top_ix.numel() - (slot_src < top_ix.numel()).sum())
         return slot_src
 
-    def recording(p, c, token, cache, lengths):
-        logits, cache = decode_step(p, c, token, cache, lengths)
+    def recording(p, c, token, cache, lengths, **kw):
+        logits, cache = decode_step(p, c, token, cache, lengths, **kw)
         records.append((token[:, 0].clone(), lengths.clone(), logits))
         return logits, cache
 
@@ -3037,7 +3196,17 @@ PLACEMENTS = ("replicated", "partitioned", "ondemand")
 DRYRUN_CELLS = ([("dcrnn-pems", "train_pems", p) for p in PLACEMENTS]
                 + [("pgt-dcrnn-pems-all-la", "train_all_la", p) for p in PLACEMENTS]
                 + [("qwen1.5-4b", s, None) for s in ("train_4k", "prefill_32k", "decode_32k")]
-                + [("deepseek-v2-lite-16b", "decode_32k", None)])
+                + [("deepseek-v2-lite-16b", "decode_32k", None)]
+                # the cells that failed on a DTensor rule torch 2.11 lacks,
+                # repaired by the local forms of models/lm/attention.py and
+                # rwkv6.py (rwkv6-1.6b train_4k and recurrentgemma-2b
+                # prefill_32k then run past the cell limit: not listed)
+                + [("h2o-danube-3-4b", "prefill_32k", None),
+                   ("deepseek-v2-lite-16b", "train_4k", None),
+                   ("deepseek-v2-lite-16b", "prefill_32k", None),
+                   ("musicgen-large", "train_4k", None),
+                   ("musicgen-large", "decode_32k", None),
+                   ("rwkv6-1.6b", "decode_32k", None)])
 DRYRUN_JOBS = 8          # processes at once (the card's host has 8 cores)
 DRYRUN_CELL_TIMEOUT = 240  # seconds a cell may run before it is recorded as failed
 DRYRUN_PEAK_RTOL = 0.10  # predicted vs measured per-device peak at 1x1
@@ -3362,6 +3531,21 @@ def main() -> int:
                 f"{time.perf_counter() - t0:.1f} s")
             check(not any(counts.values()), f"a kernel launched on the {label} path")
             torch.cuda.empty_cache()
+
+    # Serving over a mesh: the parent's counts from 0 just before and read
+    # just after (0: the child serves); the child's own counts, from 0 just
+    # before each sharded run, give linear_scan's launches on the RG-LRU's
+    # local shards.
+    for kernel in counters:
+        kernel.launches = 0
+    with tempfile.TemporaryDirectory(prefix="sharded-", dir=os.path.join(ROOT, "build")) as work:
+        sharded_scans = phase_sharded_serving(work)
+    counts = {k.__name__: k.launches for k in counters}
+    check(not any(counts.values()), f"a kernel launched in the sharded phase's parent: {counts}")
+    log(f"sharded serving path launches: linear_scan {sharded_scans} (the child's "
+        f"sharded recurrentgemma-2b run)")
+    kernels[-1]["launches"] += sharded_scans
+    torch.cuda.empty_cache()
 
     flash_err = phase_flash_kernel(rg_cfg)
     # The measured-dispatch path: tuned, then every count from 0, the path

@@ -171,6 +171,70 @@ def is_dtensor(x) -> bool:
     return mod is not None and isinstance(x, mod.DTensor)
 
 
+def shard_local(t: torch.Tensor, device_mesh, placements):
+    """``t``, whole on every rank, as a DTensor with ``placements``: each
+    rank keeps its own chunk and nothing is communicated (torch's
+    ``distribute_tensor`` scatters from one rank; here every rank holds the
+    same tensor, drawn from one seed or uploaded from the same host row).
+    A chunk is copied, so a rank holds only its shard; an unsplit tensor
+    is wrapped as it is."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    local = t
+    coord = device_mesh.get_coordinate()
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            n = device_mesh.size(i)
+            if local.shape[p.dim] % n:
+                raise ValueError(f"dim {p.dim} of {tuple(t.shape)} does not split "
+                                 f"into {n} shards")
+            local = local.chunk(n, dim=p.dim)[coord[i]]
+    if local is not t:
+        local = local.clone()
+    return DTensor.from_local(local, device_mesh, tuple(placements), run_check=False,
+                              shape=t.shape, stride=t.stride())
+
+
+def as_dtensor(t, device_mesh):
+    """A DTensor as it is; a plain tensor (the same on every rank) as a
+    replicated one, without a copy."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if is_dtensor(t):
+        return t
+    return DTensor.from_local(t, device_mesh, [Replicate()] * device_mesh.ndim,
+                              run_check=False)
+
+
+def wrap_local(local: torch.Tensor, device_mesh, placements, shape):
+    """This rank's ``local`` result as the DTensor of global ``shape`` laid
+    out by ``placements`` (shards may be uneven, so the shape is given),
+    contiguous, as the global stride it is given says."""
+    from torch.distributed.tensor import DTensor
+
+    shape = torch.Size(shape)
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(local.contiguous(), device_mesh, tuple(placements),
+                              run_check=False, shape=shape, stride=stride)
+
+
+def local_offset(t, dim: int) -> int:
+    """Global index of this rank's first element along ``dim`` of the
+    DTensor ``t`` (0 where ``dim`` is not split)."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    _, offset = compute_local_shape_and_global_offset(t.shape, t.device_mesh,
+                                                      t.placements)
+    return int(offset[dim % t.dim()])
+
+
+def model_dims(device_mesh) -> list[int]:
+    """Indices of the mesh dims named ``"model"`` that hold more than one
+    slot (the tensor-parallel dims a local form may split heads over)."""
+    names = device_mesh.mesh_dim_names or ()
+    return [i for i, n in enumerate(names) if n == "model" and device_mesh.size(i) > 1]
+
+
 class Placement(enum.Enum):
     REPLICATED = "replicated"
     PARTITIONED = "partitioned"

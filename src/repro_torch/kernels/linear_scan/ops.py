@@ -8,11 +8,14 @@ loops to S exactly, so nothing is padded, and the JAX op's tiling knobs
 measured dispatcher (:mod:`repro_torch.kernels.autotune`).  The kernel path
 is forward-only, as in the JAX package, whose Pallas scan has no gradient
 either: asking it for a gradient raises, on the CPU as on the card.
+DTensor operands (a sharded serving plane's RG-LRU) run the kernel on each
+rank's local shard, batch rows and channels being independent.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.distributed import as_dtensor, is_dtensor, wrap_local
 from repro_torch.kernels.linear_scan.kernel import linear_scan as _linear_scan_kernel
 from repro_torch.kernels.linear_scan.ref import linear_scan_ref
 
@@ -40,4 +43,26 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None = None
             "linear_scan(use_pallas=True) has no backward: the CUDA scan is "
             "forward-only, as the JAX package's Pallas scan is; train with "
             "use_pallas=False (LMConfig.use_pallas_scan=False)")
+    if is_dtensor(a):
+        return _scan_on_shards(a, b, h0)
     return _linear_scan_kernel(a, b, h0)
+
+
+def _scan_on_shards(a, b, h0):
+    """The kernel on each rank's own ``[B_local, S, D_local]`` shard of
+    DTensor operands (batch rows and channels are independent), wrapped
+    back with ``a``'s placements.  A split sequence raises: the recurrence
+    cannot be cut there without carrying ``h`` across shards."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = a.device_mesh
+    if any(p == Shard(1) for p in a.placements):
+        raise ValueError(f"linear_scan: the sequence dim is split ({a.placements}); "
+                         f"a shard cannot scan without the carry of the one before")
+    pl = [Replicate() if isinstance(p, Partial) else p for p in a.placements]
+    ph = [Shard(1) if p == Shard(2) else p for p in pl]  # h0 / h_last [B, D]
+    a_l, b_l = (as_dtensor(t, mesh).redistribute(mesh, pl).to_local() for t in (a, b))
+    h0_l = None if h0 is None else as_dtensor(h0, mesh).redistribute(mesh, ph).to_local()
+    h, h_last = _linear_scan_kernel(a_l, b_l, h0_l)
+    return (wrap_local(h, mesh, pl, a.shape),
+            wrap_local(h_last, mesh, ph, (a.shape[0], a.shape[2])))

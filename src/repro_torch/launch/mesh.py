@@ -79,6 +79,9 @@ def device_mesh(spec: MeshSpec, device_type: str = "cuda"):
     from torch.distributed.device_mesh import init_device_mesh
 
     dev = resolve_device(device_type)
+    if not torch.distributed.is_initialized():
+        raise ValueError(f"mesh {spec.label} needs a process group of "
+                         f"{mesh_chips(spec)} ranks; none is initialised")
     world = torch.distributed.get_world_size()
     if world != mesh_chips(spec):
         raise ValueError(f"mesh {spec.label} needs {mesh_chips(spec)} ranks, "

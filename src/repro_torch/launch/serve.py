@@ -1,8 +1,12 @@
 """Serving launcher of the port: replay an arrival trace through the stack.
 
-Drives the serving engine (``repro_torch.serve``) on one device: planes of
+Drives the serving engine (``repro_torch.serve``): planes of
 continuous-batching lanes, batched prefill, per-request deadlines, and
-prints what it served.  ``--trace batch`` submits everything up front;
+prints what it served.  On one device, or, under ``torch.distributed.run``,
+over the host mesh (data over every rank, ``model`` 1, as the JAX launcher's
+``make_host_mesh()``): every rank joins the process group and serves its
+shards of the same engine, and rank 0 prints the report, ``mesh=`` as the
+JAX launcher prints it.  ``--trace batch`` submits everything up front;
 ``--trace poisson`` replays independent arrivals at ``--rate`` req/s against
 the wall clock, so backpressure and deadline expiry fire.
 
@@ -42,6 +46,8 @@ compute dtype.
   python -m repro_torch.launch.serve --temperature 0.7 --top-k 50 --top-p 0.9 ...
   python -m repro_torch.launch.serve --role fleet --planes 2 --hb-timeout 15 ...
   python -m repro_torch.launch.serve --smoke --device cpu --requests 6 --slots 4
+  python -m torch.distributed.run --standalone --nproc-per-node 2 \\
+      -m repro_torch.launch.serve --smoke --device cpu --requests 6 --slots 4
 """
 from __future__ import annotations
 
@@ -58,8 +64,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_arch
+from repro_torch.core.distributed import init_from_env
 from repro_torch.device import resolve_device
 from repro_torch.distributed.transport import FileHeartbeatTransport
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.lm import model as lm
 from repro_torch.serve import (Backpressure, FileMailbox, FleetEngine, ServeConfig,
                                ServeEngine, ServeWorker)
@@ -121,10 +129,33 @@ def _report(done: dict, out: dict, wall: float, rejects: int, extra: str) -> Non
 
 
 # ------------------------------------------------------------ single process
+def _join_mesh(args: argparse.Namespace):
+    """Under ``torch.distributed.run`` (``RANK``, ``WORLD_SIZE`` and
+    ``LOCAL_RANK`` in the environment): join its process group
+    (``core/distributed.init_from_env``: NCCL when every local rank has a
+    card, else gloo), take this rank's device, and return the host mesh,
+    data over every rank and ``model`` 1, as the JAX launcher serves over
+    ``make_host_mesh()``.  Otherwise None: one device."""
+    if not all(k in os.environ for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK")):
+        return None
+    dev, _ = init_from_env(args.device)
+    args.device = str(dev)
+    return make_host_mesh(devices=torch.distributed.get_world_size())
+
+
 def _run_engine(args: argparse.Namespace) -> dict:
+    mesh = _join_mesh(args)
+    try:
+        return _serve_engine(args, mesh)
+    finally:
+        if mesh is not None:
+            torch.distributed.destroy_process_group()
+
+
+def _serve_engine(args: argparse.Namespace, mesh) -> dict:
     cfg = _model_config(args)
     engine = ServeEngine(_params(args, cfg), cfg, _serve_config(args),
-                         planes=args.planes, device=args.device)
+                         planes=args.planes, mesh=mesh, device=args.device)
     prompts = _prompts(args, cfg.vocab)
 
     rejects = 0
@@ -152,11 +183,13 @@ def _run_engine(args: argparse.Namespace) -> dict:
     wall = time.perf_counter() - t0
 
     plane = engine.planes[0]
-    extra = (f"planes={args.planes} slots={args.slots} device={plane.device} "
+    extra = (f"planes={args.planes} slots={args.slots} "
+             f"mesh={(plane.mesh or make_host_mesh()).shape} device={plane.device} "
              f"cache={plane.cache_bytes() / 1e6:.1f}MB/plane")
     if args.block_size:
         extra += f" paged[bs={args.block_size} blocks={plane.pool.num_blocks}]"
-    _report(engine.router.done, out, wall, rejects, extra)
+    if mesh is None or torch.distributed.get_rank() == 0:
+        _report(engine.router.done, out, wall, rejects, extra)
     return {"engine": engine, "results": out, "wall": wall, "rejects": rejects}
 
 

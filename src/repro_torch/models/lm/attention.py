@@ -15,7 +15,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.distributed import is_dtensor
+from repro_torch.core.distributed import (as_dtensor, is_dtensor, local_offset,
+                                          model_dims, wrap_local)
 from repro_torch.loops import trips
 
 NEG_INF = -1e30
@@ -39,6 +40,49 @@ def zero_pad(x, dim: int, before: int = 0, after: int = 0):
     return torch.cat([t for t in (parts[0], x, parts[1]) if t is not None], dim=dim)
 
 
+def _layout(rows, h: int, n_kv: int, seq_split=()):
+    """Placements under which attention runs on each rank's shards, as
+    ``(q placements, k/v placements)``: the batch split of ``rows`` (q, or
+    the decode cache, whose lanes decide) is kept; a mesh dim in
+    ``seq_split`` keeps the keys split along the sequence (q whole there);
+    a ``model`` dim splits the heads when every rank then holds whole kv
+    groups (the kv head count divides the dim, or there is one kv head,
+    which every rank keeps); anything else is whole."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = rows.device_mesh
+    tp = model_dims(mesh)
+    pq, pkv = [], []
+    for i, p in enumerate(rows.placements):
+        n = mesh.size(i)
+        if p == Shard(0):
+            pq.append(p)
+            pkv.append(p)
+        elif i in seq_split:
+            pq.append(Replicate())
+            pkv.append(Shard(1))
+        elif i in tp and h % n == 0 and (n_kv % n == 0 or n_kv == 1):
+            pq.append(Shard(2))
+            pkv.append(Shard(2) if n_kv % n == 0 else Replicate())
+        else:
+            pq.append(Replicate())
+            pkv.append(Replicate())
+    return pq, pkv
+
+
+def _on_shards(fn, q, k, v, **kw):
+    """``fn(q, k, v, **kw)`` for DTensor operands, run by every rank on its
+    own batch rows and heads (both independent) and wrapped back with the
+    same placements: the SPMD form of the einsums, which torch 2.11's
+    DTensor cannot fold when a head dim is split."""
+    mesh = next(t for t in (q, k, v) if is_dtensor(t)).device_mesh
+    q, k, v = (as_dtensor(t, mesh) for t in (q, k, v))
+    pq, pkv = _layout(q, q.shape[2], k.shape[2])
+    out = fn(q.redistribute(mesh, pq).to_local(), k.redistribute(mesh, pkv).to_local(),
+             v.redistribute(mesh, pkv).to_local(), **kw)
+    return wrap_local(out, mesh, pq, tuple(q.shape[:3]) + (out.shape[3],))
+
+
 def full_attention(q, k, v, *, causal: bool = True, window: int | None = None,
                    q_offset: int = 0, kv_valid_from: int = 0):
     """q: [B, Sq, H, D], k/v: [B, Skv, Hkv, D] -> [B, Sq, H, D].
@@ -46,8 +90,11 @@ def full_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     ``q_offset``: position of q[0] relative to k[0] (decode / banded chunks).
     ``kv_valid_from``: keys below this index are masked (padding).
     Materialises the [Sq, Skv] score matrix; :func:`blockwise_attention`
-    is for long sequences.
+    is for long sequences.  DTensor operands run on each rank's shards.
     """
+    if is_dtensor(q) or is_dtensor(k):
+        return _on_shards(full_attention, q, k, v, causal=causal, window=window,
+                          q_offset=q_offset, kv_valid_from=kv_valid_from)
     b, sq, h, d = q.shape
     n_kv = k.shape[2]
     qg = _grouped(q, n_kv)
@@ -69,7 +116,11 @@ def blockwise_attention(q, k, v, *, causal: bool = True, window: int | None = No
                         q_chunk: int = 512, kv_chunk: int = 512):
     """Flash-style online-softmax attention over [q_chunk, kv_chunk] blocks:
     the peak live score block is [qc, kc], never [Sq, Skv].  Inference only
-    (the JAX version's ``jax.checkpoint`` is for its backward)."""
+    (the JAX version's ``jax.checkpoint`` is for its backward).  DTensor
+    operands run on each rank's shards."""
+    if is_dtensor(q) or is_dtensor(k):
+        return _on_shards(blockwise_attention, q, k, v, causal=causal, window=window,
+                          q_chunk=q_chunk, kv_chunk=kv_chunk)
     b, s, h, d = q.shape
     n_kv = k.shape[2]
     skv = k.shape[1]
@@ -117,8 +168,11 @@ def banded_attention(q, k, v, *, window: int, q_chunk: int = 512):
     """Sliding-window attention with O(S · window) work: each q chunk sees
     only the ``window + q_chunk`` keys that end at its last position.
 
-    Needs ``q_chunk | S``, as the JAX version asserts.
+    Needs ``q_chunk | S``, as the JAX version asserts.  DTensor operands run
+    on each rank's shards.
     """
+    if is_dtensor(q) or is_dtensor(k):
+        return _on_shards(banded_attention, q, k, v, window=window, q_chunk=q_chunk)
     b, s, h, d = q.shape
     if s % q_chunk:
         raise ValueError(f"banded_attention needs the sequence length to be a "
@@ -144,20 +198,78 @@ def banded_attention(q, k, v, *, window: int, q_chunk: int = 512):
 
 def decode_attention(q1, k_cache, v_cache, length, *, window: int | None = None):
     """One-token decode.  q1: [B, 1, H, D]; caches: [B, S_max, Hkv, D];
-    ``length``: [B] tensor (or int) of valid cache entries per lane."""
+    ``length``: [B] tensor (or int) of valid cache entries per lane.
+
+    DTensor operands run on each rank's shards.  Where the caches split
+    their sequence over a mesh dim (``launch/sharding.cache_shardings``
+    puts it on ``model``), each rank scores its own keys and the softmax
+    takes its max and sum, and the product its sum, by explicit
+    all-reduces over that dim.
+    """
+    if is_dtensor(q1) or is_dtensor(k_cache):
+        return _decode_on_shards(q1, k_cache, v_cache, length, window)
+    return _decode_local(q1, k_cache, v_cache, length, window)
+
+
+def _decode_local(q1, k_cache, v_cache, length, window, kv_offset: int = 0,
+                  seq_groups=()):
+    """:func:`decode_attention` on plain tensors.  ``kv_offset``: the global
+    position of the cache's first row; ``seq_groups``: the ``(mesh, dim)``
+    groups over which the sequence is split (none: the whole softmax here)."""
     b, _, h, d = q1.shape
     n_kv = k_cache.shape[2]
     qg = _grouped(q1, n_kv)[:, 0]  # [B, Hkv, G, D]
     scores = torch.einsum("bhgd,bkhd->bhgk", qg.float(), k_cache.float()) / math.sqrt(d)
     kpos = torch.arange(k_cache.shape[1], device=q1.device)[None, :]
+    if kv_offset:
+        kpos = kpos + kv_offset
     length = torch.as_tensor(length, device=q1.device).reshape(-1, 1)
     mask = kpos < length
     if window is not None:
         mask = mask & (kpos >= length - window)
     scores = torch.where(mask[:, None, None, :], scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgk,bkhd->bhgd", probs.to(v_cache.dtype), v_cache)
-    return out.reshape(b, 1, h, d)
+    if not seq_groups:
+        probs = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bhgk,bkhd->bhgd", probs.to(v_cache.dtype), v_cache)
+        return out.reshape(b, 1, h, d)
+    import torch.distributed._functional_collectives as funcol
+
+    def over_seq(t, op):
+        for g in seq_groups:
+            t = funcol.all_reduce(t, op, g)
+        return t
+
+    # softmax(x) = exp(x - max) / sum, max and sum over every rank's keys;
+    # the product's partial sums add in float32 and round once, as one
+    # product over the whole sequence does
+    m = over_seq(torch.amax(scores, dim=-1, keepdim=True), "max")
+    e = torch.exp(scores - m)
+    probs = e / over_seq(torch.sum(e, dim=-1, keepdim=True), "sum")
+    out = torch.einsum("bhgk,bkhd->bhgd", probs.to(v_cache.dtype).float(), v_cache.float())
+    return over_seq(out, "sum").to(v_cache.dtype).reshape(b, 1, h, d)
+
+
+def _decode_on_shards(q1, k_cache, v_cache, length, window):
+    """:func:`decode_attention` for DTensor operands: rows follow the
+    cache's lanes; heads split over ``model`` where the cache keeps its
+    sequence whole there (:func:`_layout`)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = next(t for t in (q1, k_cache) if is_dtensor(t)).device_mesh
+    q1, k_cache, v_cache = (as_dtensor(t, mesh) for t in (q1, k_cache, v_cache))
+    seq = [i for i, p in enumerate(k_cache.placements) if p == Shard(1)]
+    pq, pkv = _layout(k_cache, q1.shape[2], k_cache.shape[2], seq)
+    k = k_cache.redistribute(mesh, pkv)
+    b = q1.shape[0]
+    if not torch.is_tensor(length):
+        length = torch.full((b,), length, dtype=torch.long)
+    rows = [p if p == Shard(0) else Replicate() for p in pq]
+    length = as_dtensor(length.to(q1.device).reshape(b), mesh).redistribute(mesh, rows)
+    out = _decode_local(q1.redistribute(mesh, pq).to_local(), k.to_local(),
+                        v_cache.redistribute(mesh, pkv).to_local(), length.to_local(),
+                        window, local_offset(k, 1) if seq else 0,
+                        [(mesh, i) for i in seq])
+    return wrap_local(out, mesh, pq, tuple(q1.shape))
 
 
 class PagedTables(NamedTuple):
@@ -177,25 +289,132 @@ def paged_tables(paged, lengths) -> PagedTables:
     """``paged`` as given to ``decode_step`` / ``mla_decode``, ``(tables,
     block_size, max_len)``, with the new token's write positions for
     ``lengths``.  Retired lanes have all-null tables and length 0, so their
-    writes land in the null block 0."""
+    writes land in the null block 0.  DTensor tables or lengths are made
+    whole first (every rank indexes every lane's blocks)."""
     if isinstance(paged, PagedTables):
         return paged
     tables, bs, max_len = paged
+    tables, lengths = (t.full_tensor() if is_dtensor(t) else t for t in (tables, lengths))
     rows = torch.arange(tables.shape[0], device=tables.device)
     return PagedTables(tables, bs, max_len, (tables[rows, lengths // bs], lengths % bs))
 
 
+def _pool_layout(pool, lead: int):
+    """For a DTensor pool ``[num_blocks, block_size, ...]``: the mesh dims
+    that split its blocks, and the placements of a per-lane tensor whose
+    trailing dims are the pool's from dim 2 on, after ``lead`` leading dims
+    (whole along the lanes)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    split, lanes = [], []
+    for i, p in enumerate(pool.placements):
+        if p == Shard(0):
+            split.append(i)
+            lanes.append(Replicate())
+        elif isinstance(p, Shard) and p.dim >= 2:
+            lanes.append(Shard(p.dim - 2 + lead))
+        elif isinstance(p, Shard):
+            raise ValueError(f"a pool split along its block rows: {pool.placements}")
+        else:
+            lanes.append(Replicate())
+    return split, lanes
+
+
 def paged_view(pool, paged: PagedTables):
     """One layer's per-lane view ``[B, max_len, ...]`` of a block pool
-    through the block tables, laid out as a contiguous cache line is."""
+    through the block tables, laid out as a contiguous cache line is.
+
+    A DTensor pool whose blocks are split over mesh dims (``launch/
+    sharding.paged_cache_shardings`` puts them on the data axes) is gathered
+    shard by shard: each rank takes the blocks it holds, zeros for the rest,
+    and an all-reduce over those dims sums the pieces into every lane's
+    whole view on every rank."""
     b = paged.tables.shape[0]
-    view = pool[paged.tables].reshape((b, -1) + tuple(pool.shape[2:]))
-    return view[:, :paged.max_len].contiguous()
+    if not is_dtensor(pool):
+        view = pool[paged.tables].reshape((b, -1) + tuple(pool.shape[2:]))
+        return view[:, :paged.max_len].contiguous()
+    import torch.distributed._functional_collectives as funcol
+
+    mesh = pool.device_mesh
+    split, placements = _pool_layout(pool, 2)
+    pool_l = pool.to_local()
+    idx = paged.tables
+    if split:
+        idx = idx - local_offset(pool, 0)
+        inside = (idx >= 0) & (idx < pool_l.shape[0])
+        idx = idx.clamp(0, pool_l.shape[0] - 1)
+    view = pool_l[idx]
+    if split:
+        view = torch.where(inside.reshape(inside.shape + (1,) * (view.dim() - 2)), view, 0)
+    view = view.reshape((b, -1) + tuple(pool_l.shape[2:]))[:, :paged.max_len].contiguous()
+    for i in split:
+        view = funcol.all_reduce(view, "sum", (mesh, i))
+    return wrap_local(view, mesh, placements,
+                      (b, view.shape[1]) + tuple(pool.shape[2:]))
 
 
 def paged_write(pool, paged: PagedTables, new) -> None:
-    """Write each lane's new token row at its (physical block, offset)."""
-    pool[paged.where] = new.to(pool.dtype)
+    """Write each lane's new token row at its (physical block, offset).
+
+    A DTensor pool whose blocks are split is written shard by shard: every
+    rank takes every lane's row and writes those whose block it holds.  A
+    lane whose block lies elsewhere rewrites the first such row with the
+    same value (or, on a rank that holds none of them, its first row with
+    its old value), so no two writes of one position carry two values."""
+    if not is_dtensor(pool):
+        pool[paged.where] = new.to(pool.dtype)
+        return
+    mesh = pool.device_mesh
+    split, placements = _pool_layout(pool, 1)
+    new_l = as_dtensor(new, mesh).redistribute(mesh, placements).to_local().to(pool.dtype)
+    pool_l = pool.to_local()
+    blk, off = paged.where
+    if not split:
+        pool_l[blk, off] = new_l
+        return
+    blk = blk - local_offset(pool, 0)
+    inside = (blk >= 0) & (blk < pool_l.shape[0])
+    first = torch.argmax(inside.to(torch.int8))
+    some = inside.any()
+    blk = torch.where(inside, blk, torch.where(some, blk[first], 0))
+    off = torch.where(inside, off, torch.where(some, off[first], 0))
+    keep = inside.reshape((-1,) + (1,) * (new_l.dim() - 1))
+    pool_l[blk, off] = torch.where(keep, new_l,
+                                   torch.where(some, new_l[first], pool_l[0, 0]))
+
+
+def roll_seq(x, shift: int):
+    """``torch.roll(x, shift, dims=1)`` as one ``cat`` of two slices (torch
+    2.11's DTensor has no rule for ``aten.roll``; the values are the same)."""
+    shift %= x.shape[1]
+    if not shift:
+        return x
+    return torch.cat([x[:, -shift:], x[:, :-shift]], dim=1)
+
+
+def write_prefix(cache, new) -> None:
+    """``cache[:, :S] = new`` in place for ``new`` of length S along dim 1
+    (a prefill's rows, from position 0).
+
+    A DTensor cache whose dim 1 is split (``cache_shardings`` puts a
+    cache's sequence on ``model``) is written shard by shard: ``new`` takes
+    the cache's layout with dim 1 whole, and each rank copies the rows that
+    fall inside its own slice of the sequence.
+    """
+    s = new.shape[1]
+    if not is_dtensor(cache):
+        cache[:, :s] = new.to(cache.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = cache.device_mesh
+    whole = [Replicate() if p == Shard(1) else p for p in cache.placements]
+    new_l = as_dtensor(new, mesh).redistribute(mesh, whole).to_local()
+    cache_l = cache.to_local()
+    lo = local_offset(cache, 1)
+    n = max(0, min(s - lo, cache_l.shape[1]))
+    if n:
+        cache_l[:, :n] = new_l[:, lo:lo + n].to(cache_l.dtype)
 
 
 def write_token(cache, pos, new, rows=None) -> None:

@@ -34,10 +34,12 @@ import dataclasses
 import itertools
 from typing import Any
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core.distributed import constrain, is_dtensor, minor_split
+from repro_torch.core.distributed import (as_dtensor, constrain, is_dtensor, local_offset,
+                                          minor_split)
 from repro_torch.device import resolve_device
 from repro_torch.models.lm import rglru, rwkv6
 from repro_torch.models.lm.attention import (
@@ -49,7 +51,10 @@ from repro_torch.models.lm.attention import (
     paged_tables,
     paged_view,
     paged_write,
+    roll_seq,
+    write_prefix,
     write_token,
+    zero_pad,
 )
 from repro_torch.models.lm.config import LMConfig
 from repro_torch.models.lm.layers import (apply_rope, init_linear, init_mlp,
@@ -235,8 +240,8 @@ def _attn_mixer(p, cfg: LMConfig, spec: LayerSpec, x, positions, *, mode,
                                         blockwise=s > BLOCKWISE_THRESHOLD)
         if mode != "prefill":
             return y, None
-        cache["ckv"][:, :s] = _constrain(c_kv.to(cache["ckv"].dtype), shardings, "ckv")
-        cache["kpe"][:, :s] = _constrain(k_pe.to(cache["kpe"].dtype), shardings, "ckv")
+        write_prefix(cache["ckv"], _constrain(c_kv.to(cache["ckv"].dtype), shardings, "ckv"))
+        write_prefix(cache["kpe"], _constrain(k_pe.to(cache["kpe"].dtype), shardings, "ckv"))
         return y, cache
 
     a = p["attn"]
@@ -301,14 +306,14 @@ def _attn_mixer(p, cfg: LMConfig, spec: LayerSpec, x, positions, *, mode,
         # by s % window (a permutation, written whole, no indexed write)
         for c, new in ((kc, k), (vc, v)):
             if s >= window:
-                c.copy_(torch.roll(new[:, -window:], shifts=s % window, dims=1))
+                write_prefix(c, roll_seq(new[:, -window:], s % window))
             else:
                 c.zero_()
-                c[:, :s] = new.to(c.dtype)
+                write_prefix(c, new)
     else:
         # written in the cache's own layout, so the write is a local slice
-        kc[:, :s] = _constrain(k.to(kc.dtype), shardings, "kv")
-        vc[:, :s] = _constrain(v.to(vc.dtype), shardings, "kv")
+        write_prefix(kc, _constrain(k.to(kc.dtype), shardings, "kv"))
+        write_prefix(vc, _constrain(v.to(vc.dtype), shardings, "kv"))
     return y, {"k": kc, "v": vc}
 
 
@@ -541,7 +546,34 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int,
 
 
 def _put_lanes(big, small, slots):
+    if is_dtensor(big):
+        return _put_on_shards(big, small, np.asarray(slots).reshape(-1), 1)
     big[:, torch.as_tensor(slots, dtype=torch.long, device=big.device)] = small.to(big.dtype)
+    return big
+
+
+def _put_on_shards(big, small, rows: np.ndarray, lead: int):
+    """``big[:, rows] = small`` for a DTensor ``big`` whose dim 1 (lanes,
+    or pool blocks) may be split over mesh dims (``launch/sharding``'s
+    cache rules put it on the data axes), in place: ``small`` (``[R, len(
+    rows), ...]`` after ``lead`` - 1 more index dims folded into one) takes
+    ``big``'s layout with dim 1 whole, and each rank writes the rows it
+    holds.  ``rows`` are host indices, so the choice costs no device sync."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = big.device_mesh
+    whole = [Replicate() if p == Shard(1) else
+             Shard(p.dim + lead - 1) if isinstance(p, Shard) and p.dim > 1 else p
+             for p in big.placements]
+    small_l = as_dtensor(small, mesh).redistribute(mesh, whole).to_local()
+    small_l = small_l.reshape((small_l.shape[0], -1) + tuple(small_l.shape[1 + lead:]))
+    big_l = big.to_local()
+    lo = local_offset(big, 1)
+    mine = np.flatnonzero((rows >= lo) & (rows < lo + big_l.shape[1]))
+    if mine.size:
+        dev = big_l.device
+        big_l[:, torch.as_tensor(rows[mine] - lo, device=dev)] = \
+            small_l[:, torch.as_tensor(mine, device=dev)].to(big_l.dtype)
     return big
 
 
@@ -612,17 +644,20 @@ def scatter_cache_paged(cache, sub, slots, phys, *, block_size: int, mask):
     def put(is_paged, big, small):
         if not is_paged:
             return _put_lanes(big, small, slots)
+        if is_dtensor(small):  # the group's lines, whole, for the cut and the fold
+            small = small.full_tensor()
         small = small.to(big.dtype)
-        idx = torch.as_tensor(phys, dtype=torch.long, device=big.device)
         r, k, s = small.shape[:3]
-        nb = idx.shape[1]
+        nb = np.shape(phys)[1]
         want = nb * block_size
         if s > want:
             small = small[:, :, :want]
         elif s < want:
-            pad = small.new_zeros((r, k, want - s) + tuple(small.shape[3:]))
-            small = torch.cat([small, pad], dim=2)
-        big[:, idx] = small.reshape((r, k, nb, block_size) + tuple(small.shape[3:]))
+            small = zero_pad(small, 2, after=want - s)
+        small = small.reshape((r, k, nb, block_size) + tuple(small.shape[3:]))
+        if is_dtensor(big):
+            return _put_on_shards(big, small, np.asarray(phys).reshape(-1), 2)
+        big[:, torch.as_tensor(phys, dtype=torch.long, device=big.device)] = small
         return big
 
     return tree_map(put, mask, cache, sub)

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.distributed import as_dtensor, is_dtensor, model_dims, wrap_local
 from repro_torch.models.lm.config import LMConfig
 from repro_torch.models.lm.layers import Draw, init_linear, linear, rms_norm
 
@@ -80,8 +81,11 @@ def _wkv_scan(r, k, v, w, u, s0):
     ``r·(S + (u ⊙ k) vᵀ)`` is taken as ``r·S + (Σ r ⊙ u ⊙ k) v``: the same
     sum in another order, which never forms the [B, H, hs, hs] bonus term,
     so autograd keeps one state a step (the ``S`` that ``r·S`` and
-    ``w ⊙ S`` both read) instead of three.
+    ``w ⊙ S`` both read) instead of three.  DTensor operands run on each
+    rank's shards (:func:`_wkv_on_shards`).
     """
+    if any(is_dtensor(t) for t in (r, k, v, w, u, s0)):
+        return _wkv_on_shards(r, k, v, w, u, s0)
     s = s0
     outs = []
     for t in range(r.shape[1]):
@@ -90,6 +94,31 @@ def _wkv_scan(r, k, v, w, u, s0):
         outs.append(torch.einsum("bhk,bhkv->bhv", rt, s) + bonus * vt)
         s = wt[..., :, None] * s + kt[..., :, None] * vt[..., None, :]
     return torch.stack(outs, dim=1), s
+
+
+def _wkv_on_shards(r, k, v, w, u, s0):
+    """:func:`_wkv_scan` for DTensor operands: batch rows and heads are
+    independent, so every rank scans its own rows and, over ``model``, its
+    own heads (when the head count divides the dim), and the results are
+    wrapped back with those placements: the SPMD form of the step's
+    einsum, which torch 2.11's DTensor cannot fold when a head dim is
+    split."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = next(t for t in (r, k, v, w, u, s0) if is_dtensor(t)).device_mesh
+    r, k, v, w, u, s0 = (as_dtensor(t, mesh) for t in (r, k, v, w, u, s0))
+    tp = model_dims(mesh)
+    pl = [p if p == Shard(0) else
+          Shard(2) if i in tp and r.shape[2] % mesh.size(i) == 0 else Replicate()
+          for i, p in enumerate(r.placements)]  # [B, S, H, hs]
+    pu = [Shard(0) if p == Shard(2) else Replicate() for p in pl]  # [H, hs]
+    ps = [Shard(1) if p == Shard(2) else p for p in pl]  # [B, H, hs, hs]
+
+    def local(t, placements):
+        return t.redistribute(mesh, placements).to_local()
+
+    out, s = _wkv_scan(*(local(t, pl) for t in (r, k, v, w)), local(u, pu), local(s0, ps))
+    return wrap_local(out, mesh, pl, r.shape), wrap_local(s, mesh, ps, s0.shape)
 
 
 def time_mix(p, cfg: LMConfig, x, *, cache=None):

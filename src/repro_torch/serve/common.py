@@ -16,14 +16,22 @@ import contextlib
 import numpy as np
 import torch
 
+from repro_torch.core.distributed import is_dtensor
+
 _COUNTER: dict | None = None
 
 
 def device_get(x) -> np.ndarray:
-    """Blocking device→host pull (the only sanctioned one in repro_torch.serve)."""
+    """Blocking device→host pull (the only sanctioned one in repro_torch.serve).
+
+    A DTensor (a sharded plane's token row, split over the data axes) is
+    made whole first, so every rank pulls the whole row: still one pull a
+    call on every rank."""
     global _COUNTER
     if _COUNTER is not None:
         _COUNTER["pulls"] += 1
+    if is_dtensor(x):
+        x = x.full_tensor()
     if isinstance(x, torch.Tensor):
         return x.cpu().numpy()
     return np.asarray(x)

@@ -24,16 +24,19 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models.lm import model as lm
 from repro_torch.models.lm.config import LMConfig
-from repro_torch.serve.plane import InferencePlane, PagedInferencePlane
+from repro_torch.serve.plane import (InferencePlane, PagedInferencePlane, place_params,
+                                     realise_mesh)
 from repro_torch.serve.router import Router, ServeRequest
 from repro_torch.serve.server import ServeConfig, validate_request
 
 
 class ServeEngine:
-    """Continuous-batching engine over one or more slot pools on one device.
+    """Continuous-batching engine over one or more slot pools, on one device
+    or sharded over a (data × model) ``mesh`` (``InferencePlane``).
 
-    The engine makes the compute-dtype copy of the weights once, so its N
-    planes share one set of weight tensors.  ``serve.block_size`` selects
+    The engine makes the compute-dtype copy of the weights once (on a mesh:
+    realises the mesh and places the copy's shards once), so its N planes
+    share one mesh and one set of weight tensors.  ``serve.block_size`` selects
     the plane flavour: None builds contiguous ``InferencePlane`` pools; a
     block size builds ``PagedInferencePlane`` pools, and admission accounts
     pool BLOCKS (through ``Router.pop_group``'s block budget) on top of free
@@ -56,6 +59,9 @@ class ServeEngine:
                                      or max(serve.max_len, 512))
         device = resolve_device(device)
         shared = lm.compute_copy(params, cfg, device)
+        if mesh is not None:
+            mesh = realise_mesh(mesh, device)
+            shared = place_params(shared, cfg, mesh, device)
         plane_cls = PagedInferencePlane if self.paged else InferencePlane
         self.planes = [plane_cls(shared, cfg, serve, mesh=mesh, device=device)
                        for _ in range(planes)]

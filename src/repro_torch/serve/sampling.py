@@ -36,6 +36,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.core.distributed import is_dtensor, local_offset, wrap_local
 from repro_torch.serve import threefry
 
 #: disabled-filter sentinels (real no-op parameter values)
@@ -184,7 +185,15 @@ def keyed_sample(logits, rids, seeds, positions, temps, top_ks, top_ps):
     A ``temperature == 0`` lane returns ``argmax`` of the RAW logits (filters
     never touch it).  Only the sampled lanes pay for the filters and the
     draw, and a step with none is one argmax, as greedy decoding was.
+
+    DTensor logits (a sharded plane's, the vocabulary split over ``model``)
+    are redistributed to whole rows, the lanes split as they were over the
+    data axes; each rank draws its own lanes from their whole rows, and the
+    tokens come back as a DTensor split as those lanes are.  A draw is a
+    pure function of its lane's row arguments, so no rank changes a token.
     """
+    if is_dtensor(logits):
+        return _sample_on_shards(logits, rids, seeds, positions, temps, top_ks, top_ps)
     toks = torch.argmax(logits, dim=-1).to(torch.int32)
     sampled = np.flatnonzero(np.asarray(temps) > 0.0)
     if sampled.size:
@@ -194,3 +203,16 @@ def keyed_sample(logits, rids, seeds, positions, temps, top_ks, top_ps):
         drawn = torch.argmax(perturbed(logits[idx], *rows), dim=-1)
         toks[idx] = drawn.to(torch.int32)
     return toks
+
+
+def _sample_on_shards(logits, *rows):
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = logits.device_mesh
+    lanes = [p if p == Shard(0) else Replicate() for p in logits.placements]
+    logits = logits.redistribute(mesh, lanes)
+    lo = local_offset(logits, 0)
+    local = logits.to_local()
+    n = local.shape[0]
+    toks = keyed_sample(local, *(np.asarray(r)[lo:lo + n] for r in rows))
+    return wrap_local(toks, mesh, lanes, (logits.shape[0],))

@@ -929,3 +929,77 @@ def test_cuda_dry_run_at_one_rank_predicts_the_card(cuda):
         assert abs(measured - pred.peak) <= 0.10 * measured, (pred.peak, measured)
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------- serving on a mesh
+@pytest.fixture
+def nccl_mesh(cuda):
+    """A 1x1 (data, model) DeviceMesh over a one-rank NCCL group of this
+    process, torn down after the test."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as M
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        yield M.device_mesh(M.MeshSpec(("data", "model"), (1, 1)), "cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_linear_scan_on_dtensors_launches_the_kernel_on_local_shards(nccl_mesh, dtype):
+    """DTensor operands (rows and channels split, on a one-rank mesh) run the
+    kernel once on the local shard, bit-exact to the plain scan of the whole
+    tensors; a split sequence raises."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    a = torch.sigmoid(torch.randn(4, 33, 96, generator=g, device="cuda")).to(dtype)
+    b = torch.randn(4, 33, 96, generator=g, device="cuda").to(dtype)
+    h0 = torch.randn(4, 96, generator=g, device="cuda")
+    put = lambda t, *pl: DTensor.from_local(t, nccl_mesh, pl, run_check=False)
+    before = ls_kernel.linear_scan.launches
+    h, h_last = linear_scan(put(a, Shard(0), Shard(2)), put(b, Shard(0), Shard(2)),
+                            put(h0, Shard(0), Shard(1)), use_pallas=True)
+    torch.cuda.synchronize()
+    assert ls_kernel.linear_scan.launches == before + 1
+    want_h, want_last = linear_scan_ref(a, b, h0)
+    assert tuple(h.placements) == (Shard(0), Shard(2))
+    assert torch.equal(h.to_local(), want_h) and torch.equal(h_last.to_local(), want_last)
+    with pytest.raises(ValueError, match="sequence dim is split"):
+        linear_scan(put(a, Shard(0), Shard(1)), put(b, Shard(0), Shard(1)), use_pallas=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_size", [None, 5])
+def test_cuda_sharded_qwen_smoke_plane_equals_the_unsharded_one(nccl_mesh, block_size):
+    """qwen1.5-4b's smoke config served by ``ServeEngine(mesh=...)`` over a
+    one-rank NCCL mesh and by the unsharded engine, greedy and sampled
+    lanes: the same tokens, the cache placed as DTensors."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.lm import model as lm
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    cfg = get_arch("qwen1.5-4b").smoke_config()
+    params = lm.init(torch.Generator(device="cuda").manual_seed(2), cfg, device="cuda")
+    sc = ServeConfig(slots=4, max_len=48, max_new_tokens=6, block_size=block_size)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 120, int(rng.integers(3, 12))) for _ in range(6)]
+    outs = []
+    for mesh in (None, nccl_mesh):
+        eng = ServeEngine(params, cfg, sc, mesh=mesh, device="cuda")
+        rids = [eng.submit(p, **({"temperature": 0.7, "top_k": 20, "top_p": 0.9, "seed": i}
+                                 if i % 2 else {})) for i, p in enumerate(prompts)]
+        out = eng.run()
+        outs.append([out[r] for r in rids])
+    assert outs[0] == outs[1]
+    assert all(hasattr(t, "placements") for t in tree_leaves(eng.planes[0].cache))
+    assert eng.planes[0].mesh.shape == {"data": 1, "model": 1}

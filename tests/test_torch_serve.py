@@ -8,7 +8,8 @@ parameters.  Greedy tokens must be EQUAL: equal-length prompts that the
 engine prefills as one group, a budget-1 request and a request cut off when
 its lane's cache fills.  The rest mirrors ``tests/test_serve.py``: one
 device→host pull per decode step and per prefill group, router
-backpressure and fake-clock deadlines, and a mesh (not ported yet) raising.
+backpressure and fake-clock deadlines, and a mesh the process group cannot
+hold raising (sharded planes: tests/test_torch_serve_mesh.py).
 Paged planes and sampled decoding are held to the JAX package in
 tests/test_torch_paged.py and tests/test_torch_sampling.py.
 """
@@ -162,11 +163,26 @@ def test_pop_group_takes_same_length_prompts(rg):
 
 # ---------------------------------------------------- not served, and device
 def test_mesh_planes_raise(rg):
+    """A negative temperature raises; so does a mesh whose slot count is not
+    the process group's world (here a group of one process), and a mesh
+    with no group at all: a plane asked for a mesh never serves unsharded."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import MeshSpec
+
     tcfg, tparams, _ = rg
     with pytest.raises(ValueError, match="temperature"):
         ServeConfig(temperature=-1.0)
-    with pytest.raises(NotImplementedError, match="one device"):
-        InferencePlane(tparams, tcfg, ServeConfig(**SC), mesh=object(), device="cpu")
+    two = MeshSpec(("data", "model"), (2, 1))
+    with pytest.raises(ValueError, match="none is initialised"):
+        InferencePlane(tparams, tcfg, ServeConfig(**SC), mesh=two, device="cpu")
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        for make in (InferencePlane, ServeEngine):
+            with pytest.raises(ValueError, match="needs 2 ranks, the process group has 1"):
+                make(tparams, tcfg, ServeConfig(**SC), mesh=two, device="cpu")
+    finally:
+        dist.destroy_process_group()
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(rg, monkeypatch):
