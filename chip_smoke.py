@@ -31,7 +31,10 @@ before a path and read just after it:
   ``ServeEngine(..., ServeConfig(slots=8, max_len=1024, max_new_tokens=32))``
   serves 16 greedy requests with ``use_pallas_scan=True``, every RG-LRU scan
   through the CUDA ``linear_scan`` (18 launches per prefill group and per
-  decode step); one prefill group is run again through the plain scan; then
+  decode step); one prefill group is run again through the plain sequential
+  scan (the reference's branch with a cache: bit-equal) and, as a forward,
+  through the associative scan (its branch without one: within atol
+  0.125), and its RG-LRU scans are timed by the three routes; then
   the same 16 requests through paged planes (block 16, the pool sized to the
   live tokens; recurrentgemma's rec and swa state stays per lane), every odd
   request sampled (temperature 0.7, top-k 50, top-p 0.9): the greedy lanes'
@@ -150,16 +153,23 @@ before a path and read just after it:
   full width (24 layers, d_model 2,048, vocab 65,536; 1.58 B parameters,
   f32 master weights, bf16 compute) for one epoch of 6 steps (the ``lm``
   gather over an int32 token stream), with ``val_loss`` and ``val_ppl`` in
-  the epoch row; it prints each step's host ms around a synchronised step
-  and the peak memory.  (b) deepseek-v2-lite-16b at full width (MLA with
+  the epoch row, the WKV scan through its own backward; it prints each
+  step's host ms around a synchronised step and the peak memory, which must
+  be at most 1.05 x the 50.14 GiB of the WKV loop under autograd.  (b) deepseek-v2-lite-16b at full width (MLA with
   kv_lora_rank 512; MoE 64 routed experts top-6 + 2 shared; 15.7 B
   parameters drawn on the card straight into bf16) serves 16 greedy
   requests (8 slots, max_len 1,024, 32 new tokens): every request ``ok``,
   every MoE dispatch's dropped assignments counted (none at decode), and
-  one lane, replayed dropless (capacity factor E / k: which assignments a
-  prefill group drops depends on the group), its prompt prefilled and its
-  generated tokens decoded teacher-forced, ends at most twice as far from
-  a float32 ``forward`` over the same tokens as a bf16 ``forward`` is.  (c) all nine new archs at their smoke
+  every lane replayed dropless (capacity factor E / k: which assignments a
+  prefill group drops depends on the group), lanes of one prompt length
+  as one batch, each prompt prefilled and its generated tokens decoded
+  teacher-forced.  In float32 the router probabilities of every MoE
+  layer at every position must agree with a float32 ``forward``'s over the
+  same tokens within 2e-5 up to any change of expert choice (a near tie),
+  at most half the lanes may have such a change, and every other lane's
+  last logits must be within 1e-4 of the forward's; in bf16 the lanes'
+  summed distance from the float32 forward must be at most twice a bf16
+  ``forward``'s.  (c) all nine new archs at their smoke
   configs, float32: 3 launcher steps each, then prefill + 4 decode steps
   within 1e-4 of a teacher-forced forward.  The deepseek requests are then
   served again through a paged plane (MLA latent pools of block 16, the
@@ -173,12 +183,15 @@ before a path and read just after it:
   counts are set to 0 before each and must read 0 after it.
 - the launch tooling (``repro_torch.launch.{specs,dryrun,costs,roofline}``):
   (a) ``python -m repro_torch.launch.dryrun --device cuda`` in one process
-  a cell, six at a time, on fake CUDA meshes of 256 (16x16) and 512
+  a cell, eight at a time, on fake CUDA meshes of 256 (16x16) and 512
   (2x16x16) ranks: both ST-GNN cells under each placement, qwen1.5-4b's
   ``train_4k``, ``prefill_32k`` and ``decode_32k``,
   deepseek-v2-lite-16b's ``train_4k``, ``prefill_32k`` and ``decode_32k``,
   h2o-danube-3-4b's ``prefill_32k``, musicgen-large's ``train_4k`` and
-  ``decode_32k`` and rwkv6-1.6b's ``decode_32k``; each record's per-device memory,
+  ``decode_32k``, rwkv6-1.6b's ``train_4k``, ``prefill_32k`` and
+  ``decode_32k`` and recurrentgemma-2b's ``train_4k`` and ``prefill_32k``
+  (RG-LRU's associative scan in training; its sequential scan and the WKV
+  scan's forward and backward loops rolled); each record's per-device memory,
   FLOPs, bytes and collectives by kind, and its roofline row (a cell past
   240 s is recorded as failed); then ``--halo-evidence`` on a fake mesh of
   8, which must show 0 data-collective bytes at ``halo=False`` and more at
@@ -280,11 +293,22 @@ RG_ARCH = "recurrentgemma-2b"
 RG_SLOTS, RG_MAX_LEN, RG_NEW_TOKENS = 8, 1024, 32
 RG_REQUESTS, RG_PROMPT_LENS = 16, (128, 256, 512)  # the traffic cuts
 RG_AGREE_STEPS = 8  # greedy decode steps compared between the two scans
-# Logits of one prefill group through the scan kernel vs the plain scan.  The
-# kernel is bit-exact to its plain version and every other op is the same,
-# so the two should agree exactly; the bound allows a few bf16 ulps at the
-# logits' magnitude in case a library op is not deterministic.
+# Logits of one prefill group through the scan kernel vs the plain
+# sequential scan (the reference's branch with a cache).  The kernel is
+# bit-exact to its plain version and every other op is the same, so the two
+# should agree exactly; the bound allows a few bf16 ulps at the logits'
+# magnitude in case a library op is not deterministic.
 RG_LOGIT_ATOL = 0.125
+# The associative scan (the reference's branch without a cache) at the
+# group's shape: in float32 its h against the kernel's within these (the LM
+# parity tests' tolerance; the two differ by float32 roundings only).  End
+# to end in bf16 another association flips roundings through 26 layers
+# (0.159 from the kernel's prefill logits at the [2, 512] group on an
+# H100), so there the forward through the associative scan must be at most
+# RG_ASSOC_RATIO times as far from a float32 forward as the kernel's prefill
+# is; a wrong scan would put it at the logits' own scale.
+RG_SCAN_TOL = 1e-5
+RG_ASSOC_RATIO = 2.0
 
 # flash_attention against its plain version (tests/test_flash_attention.py's
 # tolerances): f32 sums in another order; bf16 outputs, and the kernel rounds
@@ -1169,9 +1193,14 @@ def phase_serve(cfg, params):
 
 def rg_compare_plain(cfg, eng, groups) -> None:
     """One prefill group again, through the scan kernel and through the
-    plain scan, on the same (compute-dtype) params; then a short greedy
-    decode from each."""
+    plain sequential scan, on the same (compute-dtype) params, with a short
+    greedy decode from each; the associative scan (a forward over the group)
+    against them and a float32 forward.  Then the group's RG-LRU scans by
+    each route, the kernel, the associative scan and the sequential scan:
+    checked in float32 and timed in bf16."""
     from repro_torch.models.lm import model as lm
+    from repro_torch.models.lm.rglru import rglru_scan
+    from repro_torch.tree import tree_map
 
     params = eng.planes[0].params
     prompts = rg_prompts()
@@ -1191,14 +1220,57 @@ def rg_compare_plain(cfg, eng, groups) -> None:
                 check(bool(torch.isfinite(step_logits).all()), "non-finite decode logits")
                 tok, lengths = torch.argmax(step_logits, -1)[:, None], lengths + 1
             runs[use] = (logits.float(), torch.stack(toks))
-    err = float((runs[True][0] - runs[False][0]).abs().max())
+        del cache
+        fwd = {use: lm.forward(params, dataclasses.replace(cfg, use_pallas_scan=use),
+                               batch)[0][:, -1].float() for use in (True, False)}
+        p32 = tree_map(lambda t: t.float(), params)
+        ref = lm.forward(p32, dataclasses.replace(cfg, dtype="float32",
+                                                  use_pallas_scan=False), batch)[0][:, -1]
+        del p32
+    diff = lambda a, b: float((a - b).abs().max())
+    err = diff(runs[True][0], runs[False][0])
     agree = float((runs[True][1] == runs[False][1]).float().mean())
+    far_kernel, far_assoc = diff(runs[True][0], ref), diff(fwd[False], ref)
     log(f"serve: prefill group [{k}, {plen}] logits through linear_scan vs the "
-        f"plain scan: max_abs_diff {err:.3e} (atol {RG_LOGIT_ATOL}); greedy "
-        f"tokens agreeing over {RG_AGREE_STEPS} decode steps: {agree:.3f}")
+        f"plain sequential scan: max_abs_diff {err:.3e} (atol {RG_LOGIT_ATOL}); greedy "
+        f"tokens agreeing over {RG_AGREE_STEPS} decode steps: {agree:.3f}; bf16 "
+        f"forwards (no cache) at the last position: through the associative scan vs "
+        f"the kernel's prefill {diff(fwd[False], runs[True][0]):.3e}, through the "
+        f"kernel vs its prefill {diff(fwd[True], runs[True][0]):.3e}, the two "
+        f"forwards {diff(fwd[False], fwd[True]):.3e}; from a float32 forward: the "
+        f"kernel's prefill {far_kernel:.3e}, the associative forward {far_assoc:.3e} "
+        f"(at most {RG_ASSOC_RATIO}x)")
     check(bool(torch.isfinite(runs[True][0]).all()), "non-finite prefill logits")
     check(err <= RG_LOGIT_ATOL, "prefill logits through linear_scan disagree "
-                                "with the plain scan")
+                                "with the plain sequential scan")
+    check(far_assoc <= RG_ASSOC_RATIO * far_kernel,
+          "the associative scan's forward is further from float32 than allowed")
+
+    # the group's RG-LRU scans by each route, at one layer's weights
+    layer = tree_map(lambda t: t[0], params["stages"][0]["sub0"]["rec"])
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    x = torch.randn((k, plen, cfg.lru_width), device="cuda", generator=gen)
+    routes = {"kernel": dict(use_pallas=True), "associative": {},
+              "sequential": dict(use_assoc=False)}
+    with torch.no_grad():
+        h32 = {name: rglru_scan(layer, x, **kw)[0] for name, kw in routes.items()}
+        gap = float(((h32["associative"] - h32["kernel"]).abs()
+                     - RG_SCAN_TOL * h32["kernel"].abs()).max())
+        x = x.to(torch.bfloat16)
+        ms = {name: median_ms(lambda kw=kw: rglru_scan(layer, x, **kw), reps=3)
+              for name, kw in routes.items()}
+    n_rec = sum(kind == "rec" for kind in cfg.block_types())
+    log(f"serve: RG-LRU scan [{k}, {plen}, {cfg.lru_width}] float32, associative vs "
+        f"kernel: max_abs_diff {diff(h32['associative'], h32['kernel']):.3e} (atol = "
+        f"rtol = {RG_SCAN_TOL}); sequential vs kernel "
+        f"{diff(h32['sequential'], h32['kernel']):.3e}")
+    check(torch.equal(h32["kernel"], h32["sequential"]),
+          "the kernel's RG-LRU scan differs from the sequential scan")
+    check(gap <= RG_SCAN_TOL, "the associative RG-LRU scan disagrees with the kernel's")
+    log(f"time: prefill group [{k}, {plen}]'s RG-LRU scan (gates included, bf16 x, "
+        f"CUDA events, median of 3) a layer: " + ", ".join(
+            f"{name} {t:.3f} ms ({n_rec} layers {n_rec * t:.2f} ms)"
+            for name, t in ms.items()))
 
 
 def scan_inputs(gen, b, s, d, dtype=torch.float32, decay=None):
@@ -2817,17 +2889,32 @@ def phase_section55(profile: bool) -> int:
 LM_ARCH = "rwkv6-1.6b"
 LM_SEQ, LM_BATCH, LM_STEPS = 128, 8, 6
 LM_ENTRIES = 196   # 68 windows of 129 tokens: 6 train steps of 8, 7 val, 13 test
+# The step and peak of the WKV loop under autograd (PERF.md §2; NVIDIA
+# H100 80GB HBM3, 700 W).  The WKV scan's own backward keeps one state a
+# step in its residual stack, as the autograd loop kept one: its peak may
+# grow by at most LM_PEAK_RATIO.
+LM_STEP_MS_BEFORE, LM_PEAK_GIB_BEFORE, LM_PEAK_RATIO = 3140.8, 50.14, 1.05
 DS_ARCH = "deepseek-v2-lite-16b"
 DS_SLOTS, DS_MAX_LEN, DS_NEW_TOKENS = 8, 1024, 32
 DS_REQUESTS, DS_PROMPT_LENS = 16, (128, 256, 512)  # the traffic cuts
-# One lane's last decode logits (bf16, absorbed MLA over the latent cache)
-# and a bf16 forward over its prompt and generated tokens (decompressed MLA),
-# both dropless, are each measured against a float32 forward: the decode
-# path may be at most this many times as far from it as the bf16 forward is
-# (bf16 rounding through 27 layers, and the expert choices it flips, put
-# both about 0.2-0.5 from the float32 logits at random init, against
-# logits of about 4; a wrong cache would put the decode at the logits'
-# own scale).
+# Every lane replayed dropless through the cache path (absorbed MLA over
+# the latent cache) and through a forward over its prompt and generated
+# tokens (decompressed MLA).  In float32 the two paths' router
+# probabilities at every MoE layer and position must agree within
+# DS_PROB_ATOL (about 3e-6 apart on the H100) up to the first place where
+# an expert choice differs: with the probabilities that close, such a
+# change is a near tie (the log gives its gap), after which the paths
+# route otherwise and the last logits move by 5e-5 to 0.12, so a lane that
+# has one is held no further.  At most half the lanes may have one, and
+# every other lane's last logits must lie within DS_F32_ATOL of the
+# float32 forward (about 2e-5 apart, against logits of about 4).  A wrong
+# cache moves the probabilities at the logits' own scale.  In bf16,
+# rounding through 27 layers and the expert choices it flips put both
+# paths 0.1-0.6 from the float32 logits and one lane's ratio of the two
+# anywhere from 0.3 to 3, and the bf16 MoE combine adds in no fixed order:
+# the lanes' summed distance of the decode may be at most DS_LOGIT_RATIO
+# times the bf16 forward's.
+DS_PROB_ATOL, DS_F32_ATOL = 2e-5, 1e-4
 DS_LOGIT_RATIO = 2.0
 LM_SMOKE = ("qwen1.5-4b", "minitron-8b", "granite-34b", "h2o-danube-3-4b",
             "internvl2-26b", "musicgen-large", "grok-1-314b", "deepseek-v2-lite-16b",
@@ -2865,7 +2952,11 @@ def phase_lm_train(profile: bool) -> None:
         f"{final.get('val_loss')}, val_ppl {final.get('val_ppl')}; train step "
         f"{step_ms:.1f} ms (median of steps 2..{len(steps)}; all: "
         f"{', '.join(f'{t:.1f}' for t in timer.ms)}); peak device memory "
-        f"{peak / 2**30:.2f} GiB")
+        f"{peak / 2**30:.2f} GiB (the WKV loop under autograd: {LM_STEP_MS_BEFORE} ms, "
+        f"{LM_PEAK_GIB_BEFORE} GiB)")
+    check(peak <= LM_PEAK_RATIO * LM_PEAK_GIB_BEFORE * 2**30,
+          f"LM train: peak {peak / 2**30:.2f} GiB above {LM_PEAK_RATIO} x "
+          f"{LM_PEAK_GIB_BEFORE} GiB")
     check(len(steps) == LM_STEPS and all(np.isfinite(losses)),
           f"LM train: {len(steps)} steps, losses {losses}")
     check(len(set(losses)) > 1, f"LM train: the loss never changed: {losses}")
@@ -2977,18 +3068,17 @@ def phase_lm_serve(profile: bool) -> None:
           "a token outside the vocabulary")
     check(dropped["decode"] == 0, "a decode step dropped MoE assignments")
 
-    # One lane: the decode call that produced its last token fed its
-    # second-to-last token at length len(prompt) + DS_NEW_TOKENS - 2.
-    rid = rids[0]
-    prompt, gen = prompts[0], np.asarray(out[rid])
-    at = prompt.size + DS_NEW_TOKENS - 2
+    # Lane 0's served logits: the decode call that produced its last token
+    # fed its second-to-last token at length len(prompt) + DS_NEW_TOKENS - 2.
+    gens = [np.asarray(out[r]) for r in rids]
+    at = prompts[0].size + DS_NEW_TOKENS - 2
     served = None
     for tok, lens, logits in records:
-        lanes = torch.nonzero((lens == at) & (tok == int(gen[-2])))
+        lanes = torch.nonzero((lens == at) & (tok == int(gens[0][-2])))
         if len(lanes):
             served = logits[int(lanes[0, 0])].float()
-    check(served is not None, "no decode call fed the lane's second-to-last token")
-    ds_check_lane(eng.planes[0].params, cfg, prompt, gen, served)
+    check(served is not None, "no decode call fed lane 0's second-to-last token")
+    ds_check_lanes(eng.planes[0].params, cfg, prompts, gens, served)
     if profile:
         profile_step(f"{DS_ARCH} decode step", eng.planes[0].decode)
     del records
@@ -3100,47 +3190,120 @@ def ds_mla_layer_paged(cfg, params) -> None:
     check(same_y and same_c and same_k, "paged MLA decode differs from contiguous")
 
 
-def ds_check_lane(params, cfg, prompt, gen, served) -> None:
-    """The lane's tokens through the cache path and through ``forward``,
+def ds_check_lanes(params, cfg, prompts, gens, served) -> None:
+    """Every lane's tokens through the cache path and through ``forward``,
     with a capacity that drops nothing (capacity factor E / k): the served
     run's prefill groups drop assignments, and which ones depends on the
-    group, so only a dropless pass compares the two paths.  The lane's
-    prompt is prefilled alone and its generated tokens decoded teacher-forced
-    (bf16); the last step's logits and a bf16 forward's over the same tokens
-    are measured against a float32 forward, and the decode may be at most
-    DS_LOGIT_RATIO times as far from it as the bf16 forward.  The served
-    logits' distance from the dropless forward is logged beside them."""
+    group, so only a dropless pass compares the two paths.  The lanes of
+    one prompt length run as one batch: prompts prefilled, generated tokens
+    decoded teacher-forced, in bf16 and in float32.  In float32 every MoE
+    layer's router probabilities are recorded at every position on both
+    paths (see DS_PROB_ATOL and DS_F32_ATOL); in bf16 the last logits of the
+    decode and of a bf16 forward are measured against a float32 forward
+    (DS_LOGIT_RATIO).  The first lane's served logits (prefill groups with
+    drops) are logged against its bf16 forward."""
     from repro_torch.models.lm import model as lm
+    from repro_torch.models.lm import moe as moe_mod
 
     moe = cfg.moe
     nd = dataclasses.replace(cfg, moe=dataclasses.replace(
         moe, capacity_factor=moe.n_experts / moe.top_k))
-    seq = torch.as_tensor(np.concatenate([prompt, gen[:-1]]), dtype=torch.long,
-                          device="cuda")[None]
-    with torch.no_grad():
-        cache = lm.init_cache(nd, 1, DS_MAX_LEN, device="cuda")
-        logits, cache, lengths = lm.prefill(params, nd, seq[:, :prompt.size], cache)
-        for t in range(prompt.size, seq.shape[1]):
-            logits, cache = lm.decode_step(params, nd, seq[:, t:t + 1], cache, lengths)
+    nd32 = dataclasses.replace(nd, dtype="float32")
+    router, probs = moe_mod._router, []
+
+    def recording(p, x, k):
+        out = router(p, x, k)
+        probs.append(out[0])
+        return out
+
+    def decode(c, seq, n_prompt):
+        cache = lm.init_cache(c, seq.shape[0], DS_MAX_LEN, device="cuda")
+        logits, cache, lengths = lm.prefill(params, c, seq[:, :n_prompt], cache)
+        for t in range(n_prompt, seq.shape[1]):
+            logits, cache = lm.decode_step(params, c, seq[:, t:t + 1], cache, lengths)
             lengths = lengths + 1
-        decoded = logits[0].float()
-        bf16 = lm.forward(params, nd, seq)[0][0, -1].float()
-        f32 = lm.forward(params, dataclasses.replace(nd, dtype="float32"), seq)[0][0, -1]
-    err_dec = float((decoded - f32).abs().max())
-    err_fwd = float((bf16 - f32).abs().max())
-    log(f"LM serve: one lane (prompt {prompt.size} + {gen.size - 1} generated tokens), "
-        f"dropless (capacity factor {nd.moe.capacity_factor:.3f}): max_abs_diff from "
-        f"the float32 forward: last decode logits {err_dec:.4f}, bf16 forward "
-        f"{err_fwd:.4f} (ratio {err_dec / err_fwd:.3f}, at most {DS_LOGIT_RATIO}; "
-        f"largest logit {float(f32.abs().max()):.3f}); decode against the bf16 "
-        f"forward {float((decoded - bf16).abs().max()):.4f}; argmax decode / bf16 / "
-        f"f32 {int(decoded.argmax())} / {int(bf16.argmax())} / {int(f32.argmax())}; "
-        f"the served logits (prefill groups with drops) against the bf16 forward: "
-        f"{float((served - bf16).abs().max()):.4f}, served token {int(gen[-1])}")
-    check(err_dec <= DS_LOGIT_RATIO * err_fwd,
-          "the lane's decode logits are further from the float32 forward than "
+        return logits.float()
+
+    def routed(run, seq, n_prompt=None):
+        """run's result and the router probabilities [layers, B, S, E]:
+        the cache path routes its prompt in one call a layer, then each
+        decoded token in one call a layer."""
+        probs.clear()
+        moe_mod._router = recording
+        try:
+            got = run()
+        finally:
+            moe_mod._router = router
+        b, s = seq.shape
+        n = s if n_prompt is None else n_prompt
+        layers = len(probs) // (s - n + 1)
+        calls = [probs[i::layers] for i in range(layers)]
+        return got, torch.stack([torch.cat([calls[l][0].reshape(b, n, -1)]
+                                           + [c.reshape(b, 1, -1) for c in calls[l][1:]], 1)
+                                 for l in range(layers)])
+
+    err = {"dec16": {}, "fwd16": {}, "dec32": {}, "probs": {}}
+    flips, bf16_first = {}, None
+    for n_prompt in sorted({p.size for p in prompts}):
+        ix = [i for i, p in enumerate(prompts) if p.size == n_prompt]
+        seq = torch.as_tensor(np.stack([np.concatenate([prompts[i], gens[i][:-1]])
+                                        for i in ix]), dtype=torch.long, device="cuda")
+        with torch.no_grad():
+            dec16 = decode(nd, seq, n_prompt)
+            fwd16 = lm.forward(params, nd, seq)[0][:, -1].float()
+            dec32, dprobs = routed(lambda: decode(nd32, seq, n_prompt), seq, n_prompt)
+            f32, fprobs = routed(lambda: lm.forward(params, nd32, seq)[0][:, -1], seq)
+        chosen = [torch.sort(moe_mod._top_k(q, moe.top_k)[1], -1)[0] for q in (dprobs, fprobs)]
+        differ = (chosen[0] != chosen[1]).any(-1)  # [layers, B, S]
+        for row, i in enumerate(ix):
+            for name, got in (("dec16", dec16), ("fwd16", fwd16), ("dec32", dec32)):
+                err[name][i] = float((got[row] - f32[row]).abs().max())
+            gap = (dprobs[:, row] - fprobs[:, row]).abs().amax(-1)  # [layers, S]
+            at = torch.nonzero(differ[:, row].T)  # (position, layer), in order
+            if len(at):  # the probabilities up to the first change of choice
+                t, l = (int(v) for v in at[0])
+                top = torch.sort(fprobs[l, row, t], descending=True)[0]
+                flips[i] = (l, t, float(top[moe.top_k - 1] - top[moe.top_k]))
+                gap = torch.cat([gap[:, :t].reshape(-1), gap[:l + 1, t]])
+            err["probs"][i] = float(gap.max())
+        if 0 in ix:
+            bf16_first = fwd16[ix.index(0)]
+        del dec16, fwd16, dec32, f32, dprobs, fprobs, chosen, differ
+    lanes = range(len(prompts))
+    even = [i for i in lanes if i not in flips]
+    worst_p = max(lanes, key=err["probs"].get)
+    worst32 = max(even, key=err["dec32"].get, default=None)
+    sum_dec, sum_fwd = (sum(err[k].values()) for k in ("dec16", "fwd16"))
+    ratios = sorted(err["dec16"][i] / err["fwd16"][i] for i in lanes)
+    changed = "; ".join(f"lane {i} at layer {l}, position {t} (the forward's "
+                        f"{moe.top_k}th and next probabilities {tie:.1e} apart; last "
+                        f"logits {err['dec32'][i]:.3e})"
+                        for i, (l, t, tie) in sorted(flips.items()))
+    held = (f"{min(err['dec32'][i] for i in even):.3e}..{err['dec32'][worst32]:.3e}"
+            if even else "none")
+    log(f"LM serve: {len(prompts)} lanes replayed dropless (capacity factor "
+        f"{nd.moe.capacity_factor:.3f}), one batch a prompt length.  float32: router "
+        f"probabilities of the decode path against the forward's, up to any change of "
+        f"choice, at most {err['probs'][worst_p]:.3e} apart (lane {worst_p}; at most "
+        f"{DS_PROB_ATOL}); expert choices changed on a near tie in {len(flips)} lanes"
+        f"{': ' + changed if flips else ''}; the other {len(even)} lanes' last logits "
+        f"{held} from the float32 forward (at most {DS_F32_ATOL}).  bf16: max_abs_diff "
+        f"from the float32 forward summed over the lanes, decode {sum_dec:.4f}, bf16 "
+        f"forward {sum_fwd:.4f} (ratio {sum_dec / sum_fwd:.3f}, at most {DS_LOGIT_RATIO}); "
+        f"lane ratios {', '.join(f'{r:.3f}' for r in ratios)}; lane 0's served logits "
+        f"(prefill groups with drops) against its bf16 forward "
+        f"{float((served - bf16_first).abs().max()):.4f}")
+    check(err["probs"][worst_p] <= DS_PROB_ATOL,
+          f"lane {worst_p}'s float32 router probabilities differ by "
+          f"{err['probs'][worst_p]:.3e} between the decode path and the forward")
+    check(2 * len(even) >= len(prompts),
+          f"expert choices changed in {len(flips)} of {len(prompts)} lanes")
+    check(err["dec32"][worst32] <= DS_F32_ATOL,
+          f"lane {worst32}'s float32 decode logits are {err['dec32'][worst32]:.3e} from "
+          f"the float32 forward (at most {DS_F32_ATOL})")
+    check(sum_dec <= DS_LOGIT_RATIO * sum_fwd,
+          "the lanes' bf16 decode logits are further from the float32 forward than "
           f"{DS_LOGIT_RATIO}x the bf16 forward")
-    del cache
 
 
 def phase_lm_smoke() -> None:
@@ -3199,14 +3362,17 @@ DRYRUN_CELLS = ([("dcrnn-pems", "train_pems", p) for p in PLACEMENTS]
                 + [("deepseek-v2-lite-16b", "decode_32k", None)]
                 # the cells that failed on a DTensor rule torch 2.11 lacks,
                 # repaired by the local forms of models/lm/attention.py and
-                # rwkv6.py (rwkv6-1.6b train_4k and recurrentgemma-2b
-                # prefill_32k then run past the cell limit: not listed)
+                # rwkv6.py
                 + [("h2o-danube-3-4b", "prefill_32k", None),
                    ("deepseek-v2-lite-16b", "train_4k", None),
                    ("deepseek-v2-lite-16b", "prefill_32k", None),
                    ("musicgen-large", "train_4k", None),
                    ("musicgen-large", "decode_32k", None),
-                   ("rwkv6-1.6b", "decode_32k", None)])
+                   ("rwkv6-1.6b", "decode_32k", None)]
+                # the recurrences: RG-LRU's associative scan in training, its
+                # sequential scan and the WKV loops rolled (loops.trips)
+                + [(a, s, None) for a in ("recurrentgemma-2b", "rwkv6-1.6b")
+                   for s in ("train_4k", "prefill_32k")])
 DRYRUN_JOBS = 8          # processes at once (the card's host has 8 cores)
 DRYRUN_CELL_TIMEOUT = 240  # seconds a cell may run before it is recorded as failed
 DRYRUN_PEAK_RTOL = 0.10  # predicted vs measured per-device peak at 1x1

@@ -8,8 +8,10 @@ loops to S exactly, so nothing is padded, and the JAX op's tiling knobs
 measured dispatcher (:mod:`repro_torch.kernels.autotune`).  The kernel path
 is forward-only, as in the JAX package, whose Pallas scan has no gradient
 either: asking it for a gradient raises, on the CPU as on the card.
-DTensor operands (a sharded serving plane's RG-LRU) run the kernel on each
-rank's local shard, batch rows and channels being independent.
+DTensor operands (a sharded serving plane's RG-LRU, the dry-run's cells)
+run the kernel, or the plain scan, on each rank's local shard, batch rows
+and channels being independent; the plain scan first makes a sequence split
+over a mesh dim whole, where the kernel refuses it.
 """
 from __future__ import annotations
 
@@ -36,6 +38,8 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None = None
             raise ValueError(f"impl {impl!r}; expected ref|pallas|auto")
         use_pallas = impl == "pallas"
     if not use_pallas:
+        if is_dtensor(a):
+            return scan_on_whole_sequences(linear_scan_ref, a, b, h0)
         return linear_scan_ref(a, b, h0)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (a, b, h0)):
@@ -48,11 +52,12 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None = None
     return _linear_scan_kernel(a, b, h0)
 
 
-def _scan_on_shards(a, b, h0):
-    """The kernel on each rank's own ``[B_local, S, D_local]`` shard of
-    DTensor operands (batch rows and channels are independent), wrapped
-    back with ``a``'s placements.  A split sequence raises: the recurrence
-    cannot be cut there without carrying ``h`` across shards."""
+def _scan_on_shards(a, b, h0, scan=_linear_scan_kernel):
+    """``scan`` (the kernel; RG-LRU's associative scan passes its own) on
+    each rank's own ``[B_local, S, D_local]`` shard of DTensor operands
+    (batch rows and channels are independent), wrapped back with ``a``'s
+    placements.  A split sequence raises: the recurrence cannot be cut
+    there without carrying ``h`` across shards."""
     from torch.distributed.tensor import Partial, Replicate, Shard
 
     mesh = a.device_mesh
@@ -63,6 +68,19 @@ def _scan_on_shards(a, b, h0):
     ph = [Shard(1) if p == Shard(2) else p for p in pl]  # h0 / h_last [B, D]
     a_l, b_l = (as_dtensor(t, mesh).redistribute(mesh, pl).to_local() for t in (a, b))
     h0_l = None if h0 is None else as_dtensor(h0, mesh).redistribute(mesh, ph).to_local()
-    h, h_last = _linear_scan_kernel(a_l, b_l, h0_l)
+    h, h_last = scan(a_l, b_l, h0_l)
     return (wrap_local(h, mesh, pl, a.shape),
             wrap_local(h_last, mesh, ph, (a.shape[0], a.shape[2])))
+
+
+def scan_on_whole_sequences(scan, a, b, h0):
+    """``scan`` (the plain scan, or RG-LRU's associative scan) of DTensor
+    operands on each rank's local shards, as :func:`_scan_on_shards` runs
+    the kernel, a sequence split over a mesh dim first made whole there
+    (an all-gather over that dim)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    if any(p == Shard(1) for p in a.placements):
+        a = a.redistribute(a.device_mesh, [Replicate() if p == Shard(1) else p
+                                           for p in a.placements])
+    return _scan_on_shards(a, b, h0, scan=scan)

@@ -5,17 +5,27 @@ RG-LRU:  r_t = sigmoid(W_a x_t + b_a)          recurrence gate
          a_t = exp(-c * softplus(Lambda) * r_t)            (c = 8)
          h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
 
-The recurrence is linear in h.  ``use_pallas`` (``LMConfig.use_pallas_scan``)
-runs it through the hand-written CUDA ``linear_scan``; otherwise through the
-kernel's plain sequential version (the JAX package's associative scan gives
-the same values within float32 rounding).  Decode carries (h, conv tail) as
-the layer's cache.
+The recurrence is linear in h, and :func:`rglru_scan` has the JAX package's
+three branches.  Training (no cache) takes the default ``use_assoc=True``:
+``loops.associative_scan``, the JAX package's ``jax.lax.associative_scan``
+in its own association, so ``h`` equals the reference's bit for bit on the
+same ``(a, b)``.  The cache branch (prefill and decode) passes
+``use_assoc=False``, as the reference does: the sequential scan, the plain
+``linear_scan``, which rounds each step's product and sum (as the CUDA
+kernel does) where XLA's CPU backend contracts the reference's ``lax.scan``
+step into one FMA: the two agree within float32 rounding.
+``use_pallas`` (``LMConfig.use_pallas_scan``) runs either through the
+hand-written CUDA ``linear_scan``, which equals the sequential scan.
+Decode carries (h, conv tail) as the layer's cache.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.distributed import is_dtensor
 from repro_torch.kernels.linear_scan import linear_scan
+from repro_torch.kernels.linear_scan.ops import scan_on_whole_sequences
+from repro_torch.loops import associative_scan
 from repro_torch.models.lm.attention import zero_pad
 from repro_torch.models.lm.config import LMConfig
 from repro_torch.models.lm.layers import Draw, gelu, init_linear, linear
@@ -72,20 +82,49 @@ def _gates(p, x):
     return a, b
 
 
-def rglru_scan(p, x, h0=None, *, use_pallas: bool = False):
+def _combine(l, r):
+    """(a, h) of two spans, the earlier ``l`` then ``r``: the reference's
+    ``(l0 * r0, l1 * r0 + r1)``."""
+    return l[0] * r[0], l[1] * r[0] + r[1]
+
+
+def _assoc_scan(a, b, h0=None):
+    """h over the sequence by the associative scan (float32 ``a``, ``b``);
+    ``h0`` folded in as a virtual step 0 (``a`` = 1, ``b`` = h0) and that
+    step dropped, as the reference does.  Returns ``(h, h[:, -1])``."""
+    if h0 is not None:
+        a = torch.cat([torch.ones_like(a[:, :1]), a], dim=1)
+        b = torch.cat([h0[:, None].float(), b], dim=1)
+    _, h = associative_scan(_combine, (a, b), dim=1)
+    if h0 is not None:
+        h = h[:, 1:]
+    return h, h[:, -1]
+
+
+def rglru_scan(p, x, h0=None, *, use_assoc: bool = True, use_pallas: bool = False):
     """Linear recurrence over the sequence.  x: [B, S, w] -> (y, h_last),
-    both in x's dtype."""
+    both in x's dtype.  The reference's branches: ``use_pallas`` (the CUDA
+    scan), else ``use_assoc`` (the associative scan), else the sequential
+    scan."""
     a, b = _gates(p, x)
     h0_ = None if h0 is None else h0.float()
-    h, h_last = linear_scan(a.contiguous(), b.contiguous(), h0_,
-                            use_pallas=use_pallas)
-    return h.to(x.dtype), h_last.to(x.dtype)
+    if use_pallas:
+        h, h_last = linear_scan(a.contiguous(), b.contiguous(), h0_, use_pallas=True)
+        return h.to(x.dtype), h_last.to(x.dtype)
+    if use_assoc:
+        h, _ = (scan_on_whole_sequences(_assoc_scan, a, b, h0) if is_dtensor(a)
+                else _assoc_scan(a, b, h0))
+    else:
+        h, _ = linear_scan(a, b, h0_)
+    return h.to(x.dtype), h[:, -1].to(x.dtype)
 
 
 def rglru_block(p, cfg: LMConfig, x, *, cache=None):
     """Full Griffin recurrent block.  x: [B, S, d] -> (y, new_cache).
 
     cache = {"h": [B, w], "conv": [B, W-1, w]} or None (train from 0).
+    With a cache (prefill and decode) the scan is sequential, as the
+    reference's is; without one it is associative.
     """
     width = p["conv_w"].shape[0]
     gate = gelu(linear(p["in_gate"], x))
@@ -93,7 +132,7 @@ def rglru_block(p, cfg: LMConfig, x, *, cache=None):
     if cache is not None:
         u_ext = torch.cat([cache["conv"].to(u.dtype), u], dim=1)
         conv = _causal_conv1d(p, u_ext)[:, width - 1:]
-        h_seq, h_last = rglru_scan(p, conv, h0=cache["h"],
+        h_seq, h_last = rglru_scan(p, conv, h0=cache["h"], use_assoc=False,
                                    use_pallas=cfg.use_pallas_scan)
         new_cache = {"h": h_last, "conv": u_ext[:, -(width - 1):]}
     else:

@@ -8,7 +8,11 @@ Per head (size hs) the wkv recurrence over tokens t is
 with w_t = exp(-exp(w0 + lora_w(x̄_t))) the data-dependent per-channel decay
 and token-shift interpolation x̄ = lerp(x_t, x_{t-1}, μ + lora).  The state is
 [H, hs, hs] a sequence, whatever the context length.  The JAX package's
-``lax.scan`` over time is a Python loop here, with a float32 state; the
+``lax.scan`` over time is :class:`_WKV` here, an autograd function with a
+float32 state: its forward loops over time and keeps each step's incoming
+state in one residual stack (as XLA's scan keeps a stack for its
+gradient), and its backward loops back over time carrying dS.  Both loops
+run through ``loops.trips``, so a dry-run counts them from two steps.  The
 cache stores the state in its own dtype, as the JAX package does.
 """
 from __future__ import annotations
@@ -17,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.distributed import as_dtensor, is_dtensor, model_dims, wrap_local
+from repro_torch.loops import trips
 from repro_torch.models.lm.config import LMConfig
 from repro_torch.models.lm.layers import Draw, init_linear, linear, rms_norm
 
@@ -74,26 +79,79 @@ def _shift(x, last=None):
     return torch.cat([prev, x[:, :-1]], dim=1)
 
 
+def _wkv_forward(r, k, v, w, u, s0, states=None):
+    """The WKV recurrence step by step; each step's incoming state is
+    written into ``states`` ([S, B, H, hs, hs]) when one is given."""
+    out = torch.empty_like(r)
+    s = s0
+    for t in trips(r.shape[1]):
+        rt, kt, vt, wt = r[:, t], k[:, t], v[:, t], w[:, t]  # [B, H, hs]
+        if states is not None:
+            states[t] = s
+        bonus = torch.sum(rt * u * kt, dim=-1, keepdim=True)  # [B, H, 1]
+        out[:, t] = torch.einsum("bhk,bhkv->bhv", rt, s) + bonus * vt
+        s = wt[..., :, None] * s + kt[..., :, None] * vt[..., None, :]
+    return out, s
+
+
+class _WKV(torch.autograd.Function):
+    """:func:`_wkv_forward` with its own backward: per step, for
+    ``g = dL/dout_t`` and the carried ``dS = dL/dS_t``,
+
+        dr_t = S_{t-1} g + (u ⊙ k_t)(v_t · g)
+        dk_t = (u ⊙ r_t)(v_t · g) + dS v_t
+        dv_t = (Σ r_t ⊙ u ⊙ k_t) g + dSᵀ k_t
+        dw_t = Σ_v dS ⊙ S_{t-1}
+        du  += Σ_b r_t ⊙ k_t (v_t · g)
+        dS  <- r_t gᵀ + w_t ⊙ dS          (dS_0 at the end: ds0)
+    """
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0):
+        states = torch.empty((r.shape[1],) + tuple(s0.shape), dtype=s0.dtype,
+                             device=s0.device)
+        out, s_last = _wkv_forward(r, k, v, w, u, s0, states)
+        ctx.save_for_backward(r, k, v, w, u, states)
+        return out, s_last
+
+    @staticmethod
+    def backward(ctx, g_out, g_s):
+        r, k, v, w, u, states = ctx.saved_tensors
+        n = r.shape[1]
+        dr, dk, dv, dw = (torch.empty_like(t) for t in (r, k, v, w))
+        du = torch.zeros_like(u)
+        ds = g_s
+        for i in trips(n):
+            t = n - 1 - i
+            rt, kt, vt, wt, gt = r[:, t], k[:, t], v[:, t], w[:, t], g_out[:, t]
+            st = states[t]
+            vg = torch.sum(vt * gt, dim=-1, keepdim=True)  # [B, H, 1]
+            bonus = torch.sum(rt * u * kt, dim=-1, keepdim=True)
+            dr[:, t] = torch.einsum("bhkv,bhv->bhk", st, gt) + u * kt * vg
+            dk[:, t] = u * rt * vg + torch.einsum("bhkv,bhv->bhk", ds, vt)
+            dv[:, t] = bonus * gt + torch.einsum("bhkv,bhk->bhv", ds, kt)
+            dw[:, t] = torch.sum(ds * st, dim=-1)
+            du = du + torch.sum(rt * kt * vg, dim=0)
+            ds = rt[..., :, None] * gt[..., None, :] + wt[..., :, None] * ds
+        return dr, dk, dv, dw, du, ds
+
+
 def _wkv_scan(r, k, v, w, u, s0):
     """r/k/v: [B, S, H, hs], w: [B, S, H, hs] decay in (0,1), u: [H, hs],
     s0: [B, H, hs, hs].  Returns (out [B, S, H, hs], s_last).
 
     ``r·(S + (u ⊙ k) vᵀ)`` is taken as ``r·S + (Σ r ⊙ u ⊙ k) v``: the same
-    sum in another order, which never forms the [B, H, hs, hs] bonus term,
-    so autograd keeps one state a step (the ``S`` that ``r·S`` and
-    ``w ⊙ S`` both read) instead of three.  DTensor operands run on each
-    rank's shards (:func:`_wkv_on_shards`).
+    sum in another order, which never forms the [B, H, hs, hs] bonus term.
+    Where a gradient is wanted the scan is :class:`_WKV`, which keeps one
+    state a step for its backward; otherwise the same forward keeps none.
+    DTensor operands run on each rank's shards (:func:`_wkv_on_shards`).
     """
-    if any(is_dtensor(t) for t in (r, k, v, w, u, s0)):
-        return _wkv_on_shards(r, k, v, w, u, s0)
-    s = s0
-    outs = []
-    for t in range(r.shape[1]):
-        rt, kt, vt, wt = r[:, t], k[:, t], v[:, t], w[:, t]  # [B, H, hs]
-        bonus = torch.sum(rt * u * kt, dim=-1, keepdim=True)  # [B, H, 1]
-        outs.append(torch.einsum("bhk,bhkv->bhv", rt, s) + bonus * vt)
-        s = wt[..., :, None] * s + kt[..., :, None] * vt[..., None, :]
-    return torch.stack(outs, dim=1), s
+    args = (r, k, v, w, u, s0)
+    if any(is_dtensor(t) for t in args):
+        return _wkv_on_shards(*args)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _WKV.apply(*args)
+    return _wkv_forward(*args)
 
 
 def _wkv_on_shards(r, k, v, w, u, s0):

@@ -735,6 +735,81 @@ def test_cuda_lm_arch_matches_the_cpu(cuda, arch_id):
             torch.testing.assert_close(logits, full[:, t], atol=1e-4, rtol=1e-4)
 
 
+# ------------------------------------------------------ the LM family's scans
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 129, 4096])
+def test_cuda_associative_scan_equals_the_cpu_bit_for_bit(cuda, s):
+    """RG-LRU's associative scan (``h0`` folded in) on the card: eager
+    ``mul`` and ``add`` round each op as the CPU's do, so ``h`` and the
+    decay products equal the CPU's bit for bit."""
+    from repro_torch.loops import associative_scan
+    from repro_torch.models.lm.rglru import _assoc_scan, _combine
+
+    g = torch.Generator().manual_seed(s)
+    a = 0.5 + 0.5 * torch.rand(2, s, 2560, generator=g)
+    b = torch.randn(2, s, 2560, generator=g)
+    h0 = torch.randn(2, 2560, generator=g)
+    want = associative_scan(_combine, (a, b), dim=1)
+    got = associative_scan(_combine, (a.to(cuda), b.to(cuda)), dim=1)
+    assert all(torch.equal(x.cpu(), y) for x, y in zip(got, want))
+    h, h_last = _assoc_scan(a.to(cuda), b.to(cuda), h0.to(cuda))
+    wh, wlast = _assoc_scan(a, b, h0)
+    assert torch.equal(h.cpu(), wh) and torch.equal(h_last.cpu(), wlast)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 1, 3, 8), (2, 33, 4, 64)])
+def test_cuda_wkv_function_matches_the_cpu(cuda, shape):
+    """The WKV scan's autograd function on the card (TF32 off): its outputs
+    and every input's gradient against the CPU's, within the rwkv6 block
+    tolerance (atol 1e-5 plus rtol 1e-4; cuBLAS sums the state products in
+    another order)."""
+    from repro_torch.models.lm.rwkv6 import _wkv_scan
+
+    b, n, h, hs = shape
+    g = torch.Generator().manual_seed(n)
+    r, k, v = (torch.randn(shape, generator=g) for _ in range(3))
+    w = 0.2 + 0.79 * torch.rand(shape, generator=g)
+    u = 0.1 * torch.randn(h, hs, generator=g)
+    s0 = torch.randn(b, h, hs, hs, generator=g)
+    g_out, g_s = torch.randn(shape, generator=g), torch.randn(b, h, hs, hs, generator=g)
+    results = []
+    for dev in (torch.device("cpu"), cuda):
+        xs = [t.to(dev).requires_grad_(True) for t in (r, k, v, w, u, s0)]
+        out, s_last = _wkv_scan(*xs)
+        grads = torch.autograd.grad((out * g_out.to(dev)).sum()
+                                    + (s_last * g_s.to(dev)).sum(), xs)
+        results.append([t.detach().cpu() for t in (out, s_last, *grads)])
+    for name, want, got in zip("out s_last dr dk dv dw du ds0".split(), *results):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4, msg=name)
+
+
+@pytest.mark.cuda
+def test_cuda_recurrentgemma_trains_through_the_associative_scan(cuda):
+    """recurrentgemma-2b's smoke config in float32 with the plain scans
+    (training takes the associative scan): the loss and every gradient on
+    the card against the CPU's, within test_cuda_lm_arch_matches_the_cpu's
+    atol 1e-4 plus rtol 1e-3."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.lm import model as lm
+
+    cfg = dataclasses.replace(get_arch("recurrentgemma-2b").smoke_config(),
+                              use_pallas_scan=False)
+    cpu_params = lm.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 32), generator=torch.Generator().manual_seed(1))
+    grads = []
+    for dev in (torch.device("cpu"), cuda):
+        p = tree_map(lambda t: t.to(dev), cpu_params)
+        leaves = [t.detach().clone().requires_grad_(True) for t in tree_leaves(p)]
+        loss, _ = lm.loss_fn(tree_unflatten(p, leaves), cfg, toks.to(dev), toks.to(dev))
+        grads.append((loss, torch.autograd.grad(loss, leaves, allow_unused=True,
+                                                materialize_grads=True)))
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = grads
+    torch.testing.assert_close(l_gpu.cpu(), l_cpu, atol=1e-4, rtol=1e-3)
+    for path, a, b in zip(tree_paths(cpu_params), g_gpu, g_cpu):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-3, msg=path)
+
+
 # ------------------------------------- paged caches, keyed sampling, the fleet
 @pytest.mark.cuda
 def test_cuda_request_keys_and_bits_equal_the_cpu(cuda):

@@ -4,7 +4,12 @@ On recurrentgemma-2b's smoke config in float32, with ``use_pallas_scan=True``
 in both packages (the JAX Pallas scan in interpret mode, the port's scan
 through its CUDA kernel's plain version on the CPU), and the JAX parameters
 bridged through ``params_from_jax``: layers, attention variants, the RG-LRU
-block, ``forward``, ``prefill`` and 20 ``decode_step``s.  Float32 through a
+block, ``forward``, ``prefill`` and 20 ``decode_step``s.  With
+``use_pallas_scan=False`` (the config's default) beside them: the block,
+``forward``, ``loss_fn`` and every gradient through the associative scan,
+and ``prefill`` and 20 decode steps through the sequential scan, each
+package's own branches (``tests/lm_parity.py``'s atol 1e-5 plus rtol 1e-4
+for the loss and gradients).  Float32 through a
 few layers in two frameworks sums in another order, a few ulps per op, and
 the residual stream grows to about 6 over the four layers, so logits and
 activations are held within atol 1e-5 plus rtol 1e-5 (the largest gap seen:
@@ -18,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from lm_parity import check_forward_loss_and_grads, check_prefill_and_decode
 from repro.configs import ARCHS as JAX_ARCHS
 from repro.configs import LM_ARCHS as JAX_LM_ARCHS
 from repro.configs import get_arch as jax_get_arch
@@ -253,6 +259,18 @@ def test_prefill_and_20_decode_steps_match_jax(rg):
     assert tree_paths(tc) == tree_paths(params_from_jax(jax.device_get(jc), device="cpu"))
     for ours, theirs in zip(tree_leaves(tc), jax.tree.leaves(jc)):
         _close(ours, theirs)
+
+
+def test_forward_loss_and_grads_match_jax_through_the_associative_scan():
+    """``use_pallas_scan=False``: training's RG-LRU scans are associative in
+    both packages (48 tokens through banded attention)."""
+    check_forward_loss_and_grads("recurrentgemma-2b", seq=48)
+
+
+def test_prefill_and_20_decode_steps_match_jax_through_the_sequential_scan():
+    """``use_pallas_scan=False``: the cache branch's sequential scan in both
+    packages, through prefill and 20 decode steps (the swa ring wraps)."""
+    check_prefill_and_decode("recurrentgemma-2b", prompt=12, steps=20)
 
 
 @pytest.mark.parametrize("variant", [
