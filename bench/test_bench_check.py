@@ -1,0 +1,76 @@
+"""The comparison that decides ``correct``, at a size the CPU runs: the
+program passes, and the control and each fault the cells can have fail.
+The harness's look for a card is skipped: ``run`` is the rest of a run."""
+import time
+
+import pytest
+
+from bench import check, faults
+from bench.harness import BENCH, Run, load_json, resolve, run
+from bench.inputs import leaves
+
+CELLS = [w["name"] for w in load_json(BENCH.parent / "BENCHMARK.json")["workloads"]]
+TRAIN = [c for c in CELLS if resolve(c).traffic["mode"] == "train"]
+FORECAST = [c for c in CELLS if resolve(c).traffic["mode"] == "forecast"]
+SEED = 2 ** 31 + 977  # more than 32 signed bits hold
+
+
+def _run(tiny_tree, name, seconds=0.2, trace=False):
+    spec, bench = tiny_tree
+    cell = resolve(name, spec, bench)
+    return cell, run(cell, SEED, seconds, trace, "cpu", time.perf_counter())
+
+
+@pytest.mark.parametrize("name", TRAIN + FORECAST)
+def test_program_is_correct(tiny_tree, name):
+    cell, line = _run(tiny_tree, name)
+    assert line["correct"], line["checks"]
+    assert line["attempted"] >= 1 and line["failed"] == 0
+    assert list(line)[-1] == "checks" and set(line["checks"]) == set(cell.limits)
+    assert {"setup_s"} <= set(line["metrics"])
+
+
+@pytest.mark.parametrize("name", TRAIN + FORECAST)
+def test_traced_run_reports_per_layer_metrics(tiny_tree, name):
+    cell, line = _run(tiny_tree, name, trace=True)
+    assert line["correct"]
+    assert "resident_gib" in line["metrics"]
+    assert set(line["metrics"]) <= {m["name"] for m in cell.per_layer}
+    assert line["device"]["window_s"] > 0 and "breakdown" in line
+
+
+@pytest.mark.parametrize("name", TRAIN + FORECAST)
+def test_control_is_not_correct(tiny_tree, name):
+    """The reference in TF32 in the program's place fails a limit."""
+    spec, bench = tiny_tree
+    cell = resolve(name, spec, bench)
+    r = Run(cell, SEED, "cpu", time.perf_counter())
+    inputs = r.make_inputs()
+    if cell.traffic["mode"] == "train":
+        ids = [inputs.splits["train"][i * 4:(i + 1) * 4] for i in range(3)]
+        ref = lambda p: check.reference_train(cell.config, cell.traffic, inputs, ids, "cpu", p)
+        numbers = check.train_numbers(ref("tf32"), ref("float32"), leaves(inputs.params))
+    else:
+        ids = [inputs.splits["test"][i * 4:(i + 1) * 4] for i in range(4)]
+        ref = lambda p: check.reference_forecast(cell.config, inputs, ids, "cpu", p)
+        numbers = check.forecast_numbers(ref("tf32"), ref("float32"))
+    assert any(numbers[k] > v for k, v in cell.limits.items()), numbers
+
+
+@pytest.mark.parametrize("name", TRAIN)
+@pytest.mark.parametrize("fault", ["frozen_state", "half_batch", "scaled_gradient"])
+def test_train_fault_is_caught(tiny_tree, name, fault):
+    spec, bench = tiny_tree
+    cell = resolve(name, spec, bench)
+    with getattr(faults, fault)():
+        line = run(cell, SEED, 0.2, False, "cpu", time.perf_counter())
+    assert not line["correct"], line["checks"]
+
+
+@pytest.mark.parametrize("name", FORECAST)
+def test_altered_answer_is_caught(tiny_tree, name):
+    spec, bench = tiny_tree
+    cell = resolve(name, spec, bench)
+    with faults.altered_answer():
+        line = run(cell, SEED, 0.2, False, "cpu", time.perf_counter())
+    assert not line["correct"], line["checks"]
