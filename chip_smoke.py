@@ -742,9 +742,12 @@ def profile_step(label: str, fn) -> None:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
-    # the kernels' own events, as the table's "Self CUDA time total" sums them
+    # the kernels' own events, as the table's "Self CUDA time total" sums them:
+    # not the device-timeline shadows of record_function ranges (the
+    # program's spans among them)
     busy = sum(e.self_device_time_total for e in events
-               if e.device_type == DeviceType.CUDA) / 1e3
+               if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation) / 1e3
     log(f"profile: {label}: device busy {busy:.3f} ms of {wall:.3f} ms wall "
         f"({1 - busy / wall:.1%} idle)")
     log(events.table(sort_by="self_cuda_time_total", row_limit=12))

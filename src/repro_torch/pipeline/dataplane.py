@@ -45,6 +45,7 @@ from repro_torch.core.windows import WindowSpec
 from repro_torch.device import resolve_device
 from repro_torch.optim import AdamConfig
 from repro_torch.pipeline.samplers import ShardAlignedBatchSampler
+from repro_torch.tracing import span
 from repro_torch.train.loop import TrainLoopConfig
 
 
@@ -326,8 +327,9 @@ class DataPlane:
                         exchange: bool | None = None) -> torch.Tensor:
         """Window ids (one grid row) -> int32 tensor of rebased start steps
         on the plane's device (see :meth:`host_batch_of_starts`)."""
-        starts = self.host_batch_of_starts(window_ids, exchange=exchange)
-        return torch.as_tensor(starts).to(self.device)
+        with span("starts"):
+            starts = self.host_batch_of_starts(window_ids, exchange=exchange)
+            return torch.as_tensor(starts).to(self.device)
 
     # --------------------------------------------------------------- elastic
     def remesh(self, *, world: int, batch_per_rank: int) -> "DataPlane":

@@ -41,6 +41,7 @@ import torch.distributed as dist
 
 from repro_torch.core.batching import (gather_batch, gather_batch_fused,
                                        gather_batch_take, lm_window_batch)
+from repro_torch.tracing import span
 
 
 def lm_gather(series, starts, *, input_len: int, horizon: int):
@@ -104,14 +105,22 @@ def exchange_windows(series: torch.Tensor, starts: torch.Tensor, *, span: int,
 EXCHANGE_IMPL = {"pallas": "pallas", "auto": "auto"}
 
 
-GATHERS: dict[str, Callable] = {
+def _spanned(gather: Callable) -> Callable:
+    """``gather`` inside the ``gather`` span (:mod:`repro_torch.tracing`)."""
+    def spanned(series, starts, *, input_len: int, horizon: int):
+        with span("gather"):
+            return gather(series, starts, input_len=input_len, horizon=horizon)
+    return functools.update_wrapper(spanned, gather)
+
+
+GATHERS: dict[str, Callable] = {name: _spanned(fn) for name, fn in {
     "slice": gather_batch,
     "take": gather_batch_take,
     "fused": gather_batch_fused,
     "pallas": functools.partial(gather_batch_fused, use_pallas=True),
     "auto": gather_batch_auto,
     "lm": lm_gather,
-}
+}.items()}
 
 
 def split_windows(name: str, windows: torch.Tensor, input_len: int):

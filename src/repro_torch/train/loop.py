@@ -39,6 +39,7 @@ import torch.distributed as dist
 
 from repro_torch.optim import AdamConfig, apply_updates, init_opt_state
 from repro_torch.optim.adam import torch_dtype
+from repro_torch.tracing import span
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -226,11 +227,13 @@ def make_train_step(
     def grads_of(params, batch):
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
         with torch.enable_grad():
-            loss, metrics = loss_fn(tree_unflatten(params, leaves), batch)
+            with span("forward"):
+                loss, metrics = loss_fn(tree_unflatten(params, leaves), batch)
             # A leaf the loss never reads gets a zero gradient, as under
             # jax.value_and_grad (AdamW then leaves it as it was).
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                        materialize_grads=True)
+            with span("backward"):
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                            materialize_grads=True)
         if gdt is not None:
             grads = [g.to(gdt) for g in grads]
         metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
@@ -255,7 +258,8 @@ def make_train_step(
         if group is not None:
             loss, grads = all_reduce_mean(loss, grads, group)
         lr = schedule(opt_state["step"])
-        new_params, new_opt, gnorm = apply_updates(params, grads, opt_state, adam, lr)
+        with span("optimizer"):
+            new_params, new_opt, gnorm = apply_updates(params, grads, opt_state, adam, lr)
         out_metrics = {"loss": loss, "lr": lr, **metrics}
         if gnorm is not None:
             out_metrics["grad_norm"] = gnorm

@@ -49,7 +49,7 @@ def test_layout_mirrors_the_jax_package():
     for p in PORT.rglob("*.py"):
         rel = p.relative_to(PORT)
         if rel.name in ("__init__.py", "build.py", "threefry.py") or \
-                rel.parts[0] in ("device.py", "interop.py", "loops.py", "tree.py"):
+                rel.parts[0] in ("device.py", "interop.py", "loops.py", "tracing.py", "tree.py"):
             continue
         assert (jax_pkg / rel).exists(), f"{rel} has no counterpart in src/repro"
     assert sorted(p.name for p in (PORT / "kernels" / "csrc").iterdir()) == \
