@@ -8,7 +8,8 @@ before a path and read just after it:
 - the ST-GNN path at ``pgt-dcrnn-pems-all-la`` width (2,716 nodes, 2 input
   features, hidden 64, K = 2 hops over 2 supports, 12 in / 12 out):
   ``build_pipeline(..., gather="pallas").fit()`` for 20 steps of 32 windows
-  (the gather through the CUDA ``window_gather``), then
+  (the gather through the CUDA ``window_gather``, every hop through the CUDA
+  ``hop_gemm``, forward and backward), then
   ``evaluate(split="test")`` with ``use_pallas=True`` (every hop through the
   CUDA ``hop_project``), held against the plain evaluation; then the same
   20 steps through the feed prefetcher (depth 2) at staleness 0 and 1, each
@@ -280,12 +281,23 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 # The libraries whose kernels must run on the tensor cores.
-TENSOR_CORE_LIBS = ("flash_attention", "hop_project")
+TENSOR_CORE_LIBS = ("flash_attention", "hop_project", "hop_gemm")
 
 NODES, FEATURES, HIDDEN, K_HOPS, HORIZON = 2_716, 2, 64, 2, 12
 ENTRIES = 8_640  # cut from 105,120: 30 days of 5-minute bins
 BATCH, TRAIN_STEPS, SEED = 32, 20, 0
 HOP_RTOL = HOP_ATOL = 1e-4  # fp32, sums of 2,716 terms in another order
+# The train cells' hops (N, B, C): dcrnn-pems's B·C 520, 528 and 1,024, and
+# PeMS-All-LA's 2,112.  3xTF32 keeps fp32's accuracy, so hop_gemm's largest
+# error from the float64 product may be at most HOP_GEMM_FP32_FACTOR times
+# the fp32 plain product's on the same inputs, plus HOP_GEMM_FLOOR of the
+# product's largest magnitude (for a product that fp32 computes exactly).
+# At these shapes a sound kernel reads 0.4-0.7 of fp32's error; a kernel
+# whose tensor-core accumulator truncates over K, and one-pass TF32, read
+# 30 times it and more, and fail (PERF.md section 2.1).
+HOP_GEMM_SHAPES = ((11_160, 8, 65), (11_160, 8, 66), (11_160, 8, 128), (2_716, 32, 66))
+HOP_GEMM_FP32_FACTOR = 4
+HOP_GEMM_FLOOR = 2.0 ** -20
 EVAL_RTOL = 1e-4            # MAE through the hop kernel vs the plain hops
 SLEEP_CYCLES = 20_000_000   # ~10 ms of device clock: covers the host's enqueueing
 
@@ -408,7 +420,7 @@ def phase_build() -> None:
     for name in build.SOURCES:
         sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
                               capture_output=True, text=True, check=True).stdout
-        hmma = sum("HMMA" in line for line in sass.splitlines())
+        hmma = sum("HMMA" in line or "HGMMA" in line for line in sass.splitlines())
         log(f"build: {name}: {hmma} HMMA (tensor-core) instructions in its SASS")
         if name in TENSOR_CORE_LIBS:
             check(hmma > 0, f"{name} has no tensor-core instruction")
@@ -495,6 +507,132 @@ def phase_kernels(supports) -> dict:
     return errs
 
 
+def hop_gemm_bound_ms(n, cols) -> float:
+    """3xTF32 operations of one hop at the TF32 peak, or its bytes (S and Z
+    read once, the product written once)."""
+    flops = 2 * n * n * cols
+    nbytes = 4 * (n * n + 2 * n * cols)
+    return max(3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
+
+
+def hop_gemm_limit(fp32_err: float, want) -> float:
+    """hop_gemm's largest allowed error from the float64 product ``want``,
+    given the fp32 plain product's largest error on the same inputs."""
+    return HOP_GEMM_FP32_FACTOR * fp32_err + HOP_GEMM_FLOOR * float(want.abs().max())
+
+
+def tf32_error(s, z, want, transpose: bool) -> float:
+    """The largest error of the one-pass TF32 product (cuBLAS with TF32
+    allowed): the control that hop_gemm_limit must refuse."""
+    from repro_torch.kernels.diffusion_conv.kernel import hop_gemm_plain
+
+    allowed = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = hop_gemm_plain(s, z, transpose=transpose)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allowed
+    return float((got.double() - want).abs().max())
+
+
+def hop_gemm_host_us(reps: int = 200) -> dict:
+    """Host microseconds a call to enqueue hop_gemm, and torch.matmul on the
+    same small hop, with the device kept ahead of neither: a 64-node hop
+    runs in a few microseconds, so the time is the host's."""
+    from repro_torch.kernels.diffusion_conv.kernel import hop_gemm
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 29)
+    s = torch.rand((64, 64), device="cuda", generator=gen)
+    z = torch.randn((64, 8, 66), device="cuda", generator=gen)
+    z2 = z.view(64, -1)
+    out = {}
+    for label, fn in (("kernel", lambda: hop_gemm(s, z)),
+                      ("library", lambda: torch.matmul(s, z2))):
+        times = []
+        for _ in range(5):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            times.append((time.perf_counter() - t0) / reps * 1e6)
+            torch.cuda.synchronize()
+        out[label] = statistics.median(times)
+    log(f"hop_gemm host cost: {out['kernel']:.1f} us a call to enqueue (checks, two "
+        f"allocations, the split pass and the GEMM), torch.matmul {out['library']:.1f} us "
+        f"(median of 5 x {reps} calls at [64² x 528])")
+    return out
+
+
+def phase_hop_gemm() -> list[dict]:
+    """hop_gemm, forward (S @ Z) and backward (Sᵀ @ G), against its plain
+    version in float64 at the train cells' hop shapes (within hop_gemm_limit,
+    which the one-pass TF32 product must fail), then timed beside its 3xTF32
+    bound, its plain version and torch.matmul (the library yardstick, in
+    turns with the kernel)."""
+    from repro_torch.kernels.diffusion_conv.kernel import hop_gemm, hop_gemm_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 28)
+    rows = []
+    for n, b, c in HOP_GEMM_SHAPES:
+        adj = torch.rand((n, n), device="cuda", generator=gen)
+        s = adj / adj.sum(1, keepdim=True)  # a dense random walk
+        del adj
+        z = torch.randn((n, b, c), device="cuda", generator=gen)
+        for transpose in (False, True):
+            label = f"hop_gemm [{n}² x {b * c}] {'Sᵀ @ G' if transpose else 'S @ Z'}"
+            counts = (hop_gemm.launches_fwd, hop_gemm.launches_bwd)
+            got = hop_gemm(s, z, transpose=transpose)
+            torch.cuda.synchronize()
+            launched = (hop_gemm.launches_fwd - counts[0], hop_gemm.launches_bwd - counts[1])
+            want = hop_gemm_plain(s.double(), z.double(), transpose=transpose)
+            err = float((got.double() - want).abs().max())
+            fp32 = float((hop_gemm_plain(s, z, transpose=transpose).double() - want).abs().max())
+            limit = hop_gemm_limit(fp32, want)
+            tf32 = tf32_error(s, z, want, transpose)
+            del got, want
+            check(err <= limit, f"{label}: max_abs_err {err:.3e} above its limit {limit:.3e} "
+                                f"(fp32's {fp32:.3e})")
+            check(tf32 > limit, f"{label}: one-pass TF32's {tf32:.3e} is within the limit "
+                                f"{limit:.3e}, which then cannot tell a sound kernel")
+            check(launched == ((0, 1) if transpose else (1, 0)),
+                  f"{label}: launches {launched}")
+            a, z2 = (s.T if transpose else s), z.view(n, b * c)
+            ms = in_turns({"kernel": lambda: hop_gemm(s, z, transpose=transpose),
+                           "library": lambda: torch.matmul(a, z2)},
+                          inner=5, device_only=True)
+            plain = median_ms(lambda: hop_gemm_plain(s, z, transpose=transpose), inner=5,
+                              device_only=True)
+            bound = hop_gemm_bound_ms(n, b * c)
+            log(f"{label}: max_abs_err {err:.3e} (the fp32 plain product {fp32:.3e}, "
+                f"one-pass TF32 {tf32:.3e}; limit {limit:.3e}) ok; {ms['kernel']:.4f} ms, "
+                f"3xTF32 bound {bound:.4f} ms ({100 * bound / ms['kernel']:.1f} %), plain "
+                f"{plain:.4f} ms, torch.matmul {ms['library']:.4f} ms "
+                f"({ms['library'] / ms['kernel']:.2f}x the kernel)")
+            rows.append({"shape": [n, b * c], "transpose": transpose, "ms": ms["kernel"],
+                         "bound_ms": bound, "plain_ms": plain, "library_ms": ms["library"],
+                         "max_abs_err": err, "fp32_err": fp32, "tf32_err": tf32,
+                         "limit": limit})
+        del s, z
+        torch.cuda.empty_cache()
+    return rows
+
+
+def hop_gemm_row(rows: list[dict], host_us: dict) -> dict:
+    """hop_gemm's entry of the ``kernels`` line: the means over the train
+    shapes and both directions of phase_hop_gemm's times, its largest error,
+    and its host cost a call."""
+    mean = statistics.fmean
+    return {"name": "hop_gemm", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/hop_gemm.cu",
+            "replaces": None,  # the JAX package differentiates XLA's products
+            "launches": None, "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": mean(r["ms"] for r in rows), "plain_ms": mean(r["plain_ms"] for r in rows),
+            "bound_ms": mean(r["bound_ms"] for r in rows), "bound_by": "operations",
+            "library_ms": mean(r["library_ms"] for r in rows),
+            "host_us": host_us["kernel"], "library_host_us": host_us["library"]}
+
+
 def make_data(adj):
     from repro_torch.data import make_traffic_series
 
@@ -546,7 +684,17 @@ def fit_losses(pipe) -> list[float]:
     return [r["loss"] for r in history if "epoch_time_s" not in r]
 
 
+def train_hops(steps_per_window: int, layers: int, train_steps: int) -> tuple[int, int]:
+    """hop_gemm's (forward, backward) launches over ``train_steps`` steps of
+    a DCGRU stack: each cell runs 2 dconvs x 2 supports x K hops forward;
+    all but the first cell's gate hops (its input, the data beside a zero
+    state, takes no gradient) run backward."""
+    per_step = steps_per_window * layers * 2 * 2 * K_HOPS
+    return per_step * train_steps, (per_step - 2 * K_HOPS) * train_steps
+
+
 def phase_train(raw, supports):
+    from repro_torch.kernels.diffusion_conv.kernel import hop_gemm
     from repro_torch.kernels.window_gather.kernel import window_gather
 
     cfg, spec, pipe = stgnn_pipeline(raw, supports, "pallas", TRAIN_STEPS)
@@ -554,15 +702,20 @@ def phase_train(raw, supports):
     log(f"train: {ds.n_windows} windows (train cut to {len(ds.train_windows)} "
         f"= {TRAIN_STEPS} steps of {BATCH}; val {len(ds.val_windows)}, "
         f"test {len(ds.test_windows)})")
-    before = window_gather.launches
+    before = (window_gather.launches, hop_gemm.launches_fwd, hop_gemm.launches_bwd)
     t0 = time.perf_counter()
     state, history = pipe.fit(eval_fn=None)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     losses = [r["loss"] for r in history if "epoch_time_s" not in r]
-    gathers = window_gather.launches - before
+    gathers = window_gather.launches - before[0]
+    hops = (hop_gemm.launches_fwd - before[1], hop_gemm.launches_bwd - before[2])
+    want = train_hops(cfg.input_len, 1, len(losses))
     log(f"train: {len(losses)} steps in {wall:.2f} s (first step included); "
-        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; window_gather launches {gathers}")
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; window_gather launches {gathers}; "
+        f"hop_gemm launches {hops[0]} forward, {hops[1]} backward ({want[0]} and "
+        f"{want[1]} expected)")
+    check(hops == want, f"hop_gemm launches {hops}, expected {want}")
     check(len(losses) == TRAIN_STEPS, f"expected {TRAIN_STEPS} steps, got {len(losses)}")
     check(all(np.isfinite(losses)), "non-finite training loss")
     check(losses[-1] < losses[0], "training did not lower the loss")
@@ -570,39 +723,49 @@ def phase_train(raw, supports):
     return cfg, spec, pipe, state, losses
 
 
-def phase_forecast(cfg, spec, pipe, state, supports):
-    from repro_torch.kernels.diffusion_conv.kernel import hop_project
+def eval_pipeline(cfg, spec, pipe, state, supports, use_pallas: bool):
+    """An evaluation pipeline over ``pipe``'s dataset whose hops run on the
+    kernels (``use_pallas``) or as the plain oracle."""
     from repro_torch.models import pgt_dcrnn
     from repro_torch.pipeline import PipelineConfig, build_pipeline
 
-    fcfg = dataclasses.replace(cfg, use_pallas=True)
+    fcfg = dataclasses.replace(cfg, use_pallas=use_pallas)
 
     def loss_fn(p, x, y):
         return pgt_dcrnn.loss_fn(p, fcfg, supports, x, y), {}
 
-    fpipe = build_pipeline(None, spec, loss_fn, state["params"],
-                           PipelineConfig(batch_per_rank=BATCH, gather="pallas",
-                                          seed=SEED, device="cuda"),
-                           dataset=pipe.dataset)
+    return build_pipeline(None, spec, loss_fn, state["params"],
+                          PipelineConfig(batch_per_rank=BATCH, gather="pallas",
+                                         seed=SEED, device="cuda"),
+                          dataset=pipe.dataset)
+
+
+def phase_forecast(cfg, spec, pipe, state, supports):
+    from repro_torch.kernels.diffusion_conv.kernel import hop_gemm, hop_project
+
+    fpipe = eval_pipeline(cfg, spec, pipe, state, supports, True)
     rows, tail = fpipe.dataplane.eval_grid("test")
     max_batches = 4
     scored = min(rows.shape[0], max_batches) + int(bool(len(tail)) and rows.shape[0] < max_batches)
-    before = hop_project.launches
+    before = (hop_project.launches, hop_gemm.launches_fwd + hop_gemm.launches_bwd)
     t0 = time.perf_counter()
     mae = fpipe.evaluate(state["params"], split="test", max_batches=max_batches)
     wall = time.perf_counter() - t0
-    hops = hop_project.launches - before
+    hops = hop_project.launches - before[0]
+    gemms = hop_gemm.launches_fwd + hop_gemm.launches_bwd - before[1]
     per_batch = 2 * 2 * K_HOPS * cfg.input_len
     log(f"forecast: test MAE {mae:.6f} over {scored} batches in {wall:.2f} s; "
-        f"hop_project launches {hops} ({per_batch} per batch expected)")
+        f"hop_project launches {hops} ({per_batch} per batch expected), hop_gemm {gemms} "
+        f"(0 expected: no gradients)")
     check(np.isfinite(mae), "non-finite forecast MAE")
+    check(gemms == 0, f"hop_gemm launched {gemms} times in a forecast")
     check(hops == per_batch * scored,
           f"hop_project launches {hops} != {per_batch} x {scored} batches")
     return fpipe, mae
 
 
-def compare_forecast(pipe, state, mae):
-    plain = pipe.evaluate(state["params"], split="test", max_batches=4)
+def compare_forecast(ppipe, state, mae):
+    plain = ppipe.evaluate(state["params"], split="test", max_batches=4)
     rel = abs(mae - plain) / abs(plain)
     log(f"forecast: plain-hop test MAE {plain:.6f}; relative gap {rel:.3e} "
         f"(rtol {EVAL_RTOL})")
@@ -661,7 +824,7 @@ def log_gather_times(label: str, g: dict) -> None:
         f"({g['bytes'] / g['ms'] / 1e6:.1f} GB/s, {g['bound_ms'] / g['ms']:.1%} of the bound)")
 
 
-def phase_times(pipe, fpipe, state, supports, errs) -> list[dict]:
+def phase_times(pipe, fpipe, ppipe, state, supports, errs) -> list[dict]:
     from repro_torch.kernels.diffusion_conv.kernel import hop_project, hop_project_plain
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -677,7 +840,7 @@ def phase_times(pipe, fpipe, state, supports, errs) -> list[dict]:
     ebatch = fpipe.batch_of_starts(eval_rows[0])
     with torch.no_grad():
         fc_ms = median_ms(lambda: fpipe._eval_loss(state["params"], ebatch), reps=5)
-        plain_fc_ms = median_ms(lambda: pipe._eval_loss(state["params"], ebatch), reps=5)
+        plain_fc_ms = median_ms(lambda: ppipe._eval_loss(state["params"], ebatch), reps=5)
     log(f"time: train step {step_ms:.3f} ms (median of 5, batch {BATCH}); "
         f"forecast batch {fc_ms:.3f} ms through hop_project, {plain_fc_ms:.3f} ms "
         f"with plain hops (median of 5)")
@@ -849,7 +1012,9 @@ def dc_rows(path) -> list[dict]:
 def phase_dcrnn_train(work) -> dict:
     """Run A through the launcher, then a resume from one of its
     mid-epoch checkpoints, held bit for bit against run A."""
+    from repro_torch.configs import get_arch
     from repro_torch.distributed import Checkpointer
+    from repro_torch.kernels.diffusion_conv.kernel import hop_gemm
     from repro_torch.launch.train import main as launch
     from repro_torch.kernels.window_gather.kernel import window_gather
 
@@ -858,6 +1023,7 @@ def phase_dcrnn_train(work) -> dict:
              "--prefetch-depth", "2", "--staleness", "0", "--log-every", "1"]
     a_dir, a_hist = os.path.join(work, "A"), os.path.join(work, "A.jsonl")
     before = window_gather.launches
+    hops_before = (hop_gemm.launches_fwd, hop_gemm.launches_bwd)
     t0 = time.perf_counter()
     with StepTimer() as timer:
         launch([*flags, "--ckpt-dir", a_dir, "--history-out", a_hist])
@@ -867,6 +1033,9 @@ def phase_dcrnn_train(work) -> dict:
     losses = [r["loss"] for r in steps]
     n = len(steps)
     gathers = window_gather.launches - before
+    hops = (hop_gemm.launches_fwd - hops_before[0], hop_gemm.launches_bwd - hops_before[1])
+    model = get_arch(DC_ARCH).model
+    want_hops = train_hops(model.input_len + model.horizon, model.layers, n)
     kept = Checkpointer(a_dir).steps()
     saved = [s for s in range(DC_CKPT_EVERY, n + 1, DC_CKPT_EVERY)] + [n]
     expect = sorted(set(saved))[-3:]  # keep=3, the Checkpointer's retention
@@ -875,8 +1044,9 @@ def phase_dcrnn_train(work) -> dict:
         f"{losses[0]:.4f} -> {losses[-1]:.4f}; val MAE {rows_a[-1].get('val_mae')}; "
         f"train step {step_ms:.3f} ms (median of steps 2..{n}; all: "
         f"{', '.join(f'{t:.1f}' for t in timer.ms)}); window_gather launches {gathers}; "
-        f"checkpoints {kept}")
+        f"hop_gemm launches {hops} ({want_hops} expected); checkpoints {kept}")
     check(n >= 6 and all(np.isfinite(losses)), f"run A: {n} steps, losses {losses}")
+    check(hops == want_hops, f"run A: hop_gemm launches {hops}, expected {want_hops}")
     check(gathers >= n, "run A's steps did not go through the CUDA gather")
     check(kept == expect, f"checkpoints {kept}, expected {expect} (every "
                           f"{DC_CKPT_EVERY} steps and at the end, newest 3 kept)")
@@ -888,7 +1058,11 @@ def phase_dcrnn_train(work) -> dict:
     os.makedirs(b_dir)
     shutil.copytree(os.path.join(a_dir, f"step_{mid:010d}"),
                     os.path.join(b_dir, f"step_{mid:010d}"))
+    hops_before = (hop_gemm.launches_fwd, hop_gemm.launches_bwd)
     launch([*flags, "--ckpt-dir", b_dir, "--history-out", b_hist, "--resume"])
+    hops = (hop_gemm.launches_fwd - hops_before[0], hop_gemm.launches_bwd - hops_before[1])
+    want_hops = train_hops(model.input_len + model.horizon, model.layers, n - mid)
+    check(hops == want_hops, f"resume: hop_gemm launches {hops}, expected {want_hops}")
     rows_b = dc_rows(b_hist)
     want = [r for r in rows_a if r["step"] > mid]
     with np.load(os.path.join(a_dir, f"step_{n:010d}", "arrays.npz")) as za, \
@@ -897,7 +1071,8 @@ def phase_dcrnn_train(work) -> dict:
             np.array_equal(za[k], zb[k]) for k in za.files)
     log(f"dcrnn: resume from step {mid}: {len(rows_b)} rows (steps {mid + 1}..{n} and "
         f"the epoch summary) {'equal' if rows_b == want else 'DIFFER from'} run A's bit "
-        f"for bit; final checkpoint {'identical' if same_state else 'DIFFERS'}")
+        f"for bit; final checkpoint {'identical' if same_state else 'DIFFERS'}; hop_gemm "
+        f"launches {hops}")
     check(rows_b == want and len(rows_b) == n - mid + 1,
           f"resumed rows {rows_b} differ from run A's {want}")
     check(same_state, "the resumed run's final state differs from run A's")
@@ -3581,6 +3756,8 @@ def phase_dryrun() -> None:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--hop-gemm", action="store_true",
+                        help="run only the build and the hop_gemm phase")
     parser.add_argument("--profile", action="store_true",
                         help="add a torch.profiler breakdown of one train "
                              "step, one forecast batch and one decode step, "
@@ -3591,7 +3768,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA card",
               file=sys.stderr)
         return 1
-    from repro_torch.kernels.diffusion_conv.kernel import hop_project
+    from repro_torch.kernels.diffusion_conv.kernel import hop_gemm, hop_project
     from repro_torch.kernels.flash_attention.kernel import flash_attention
     from repro_torch.kernels.linear_scan.kernel import linear_scan
     from repro_torch.kernels.window_gather.kernel import window_gather
@@ -3599,6 +3776,11 @@ def main() -> int:
     t_start = time.perf_counter()
     name = phase_device()
     phase_build()
+    hop_rows = phase_hop_gemm()
+    host_us = hop_gemm_host_us()
+    if args.hop_gemm:
+        print(json.dumps({"hop_gemm": hop_rows, "host_us": host_us}))
+        return 0
     adj, supports = graph()
     errs = phase_kernels(supports)
     raw = make_data(adj)
@@ -3606,23 +3788,27 @@ def main() -> int:
     # The ST-GNN path: counts from 0, train then forecast, counts read after.
     window_gather.launches = 0
     hop_project.launches = 0
+    hop_gemm.launches_fwd = hop_gemm.launches_bwd = 0
     cfg, spec, pipe, state, sync_losses = phase_train(raw, supports)
     fpipe, mae = phase_forecast(cfg, spec, pipe, state, supports)
     launches = {"window_gather": window_gather.launches,
-                "hop_project": hop_project.launches}
+                "hop_project": hop_project.launches,
+                "hop_gemm": hop_gemm.launches_fwd + hop_gemm.launches_bwd}
     log(f"ST-GNN path launches: {launches}")
     for k, v in launches.items():
         check(v > 0, f"{k} was not launched on the ST-GNN path")
 
-    compare_forecast(pipe, state, mae)
-    kernels = phase_times(pipe, fpipe, state, supports, errs)
+    ppipe = eval_pipeline(cfg, spec, pipe, state, supports, False)
+    compare_forecast(ppipe, state, mae)
+    kernels = phase_times(pipe, fpipe, ppipe, state, supports, errs)
+    kernels.append(hop_gemm_row(hop_rows, host_us))
     for k in kernels:
         k["launches"] = launches[k["name"]]
     if args.profile:
         phase_profile(pipe, fpipe, state)
     log(f"peak device memory of the ST-GNN phases "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    del pipe, fpipe, state
+    del pipe, fpipe, ppipe, state
     phase_prefetch(raw, supports, sync_losses)
     torch.cuda.empty_cache()
 
@@ -3633,9 +3819,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="dcrnn-", dir=os.path.join(ROOT, "build")) as work:
         window_gather.launches = 0
         hop_project.launches = 0
+        hop_gemm.launches_fwd = hop_gemm.launches_bwd = 0
         dc = phase_dcrnn(work)
         dc_launches = {"window_gather": window_gather.launches,
-                       "hop_project": hop_project.launches}
+                       "hop_project": hop_project.launches,
+                       "hop_gemm": hop_gemm.launches_fwd + hop_gemm.launches_bwd}
     log(f"dcrnn-pems path launches: {dc_launches}")
     for k in kernels:
         check(dc_launches[k["name"]] > 0, f"{k['name']} was not launched on the "

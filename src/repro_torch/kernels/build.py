@@ -17,7 +17,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-SOURCES = ("window_gather", "hop_project", "linear_scan", "flash_attention")
+SOURCES = ("window_gather", "hop_project", "hop_gemm", "linear_scan", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

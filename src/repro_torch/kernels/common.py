@@ -24,7 +24,8 @@ class KernelDefaults:
                         of head_dim 256 in 148,992 bytes of shared memory.
 
     ``hop_project``'s tile (64 node rows per block of 128 threads) is fixed
-    in its source.  ``linear_scan`` and ``window_gather`` take their launch
+    in its source, as is ``hop_gemm``'s (128 x 176, over at most one
+    block an SM).  ``linear_scan`` and ``window_gather`` take their launch
     shapes from the call's shape and the card's SM count
     (:func:`~repro_torch.kernels.linear_scan.kernel.scan_threads`,
     :func:`~repro_torch.kernels.window_gather.kernel.launch_shape`).

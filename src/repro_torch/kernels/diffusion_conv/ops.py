@@ -1,10 +1,13 @@
-"""Public diffusion-conv op: the plain oracle by default, the kernel on request.
+"""Public diffusion-conv op: the plain oracle by default, the kernels on request.
 
-``use_pallas=True`` (the JAX package's flag name) runs every hop through
-the hand-written CUDA ``hop_project`` on a CUDA tensor, or its plain version
-on a CPU tensor.  That path is forward-only, as in the JAX package, whose
-Pallas hop has no gradient either: asking it for a gradient raises.
-``impl`` overrides ``use_pallas``: ``"ref"``/``"pallas"`` force a lowering,
+``use_pallas=True`` (the JAX package's flag name) runs the hops on the
+hand-written CUDA kernels on a CUDA tensor, or on their plain versions on a
+CPU tensor.  Where a gradient is wanted, each hop is the differentiable
+:func:`~repro_torch.kernels.diffusion_conv.kernel.hop` (the ``hop_gemm``
+kernel, forward and backward) and the projection stays one plain product,
+as :func:`diffusion_conv_ref` forms it.  Without gradients every hop runs
+through ``hop_project``, fused with its share of the projection.  ``impl``
+overrides ``use_pallas``: ``"ref"``/``"pallas"`` force a lowering,
 ``"auto"`` routes through the measured dispatcher
 (:mod:`repro_torch.kernels.autotune`).
 """
@@ -12,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.diffusion_conv.kernel import hop_project
+from repro_torch.kernels.diffusion_conv.kernel import hop, hop_project
 from repro_torch.kernels.diffusion_conv.ref import diffusion_conv_ref
 
 
@@ -31,10 +34,7 @@ def diffusion_conv(x, supports, w, b, *, k_hops: int, use_pallas: bool = False,
         return diffusion_conv_ref(x, supports, w, b, k_hops=k_hops)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, w, b, *supports)):
-        raise NotImplementedError(
-            "diffusion_conv(use_pallas=True) has no backward: the hop_project "
-            "kernel is forward-only (its backward kernel is still to be "
-            "written); train with use_pallas=False")
+        return _trained(x, supports, w, b, k_hops)
     c = x.shape[2]
     h = w.shape[1]
     z0 = x.transpose(0, 1).contiguous()  # [N, B, C]
@@ -48,3 +48,19 @@ def diffusion_conv(x, supports, w, b, *, k_hops: int, use_pallas: bool = False,
         for k in range(k_hops):
             z, y = hop_project(s, z, wk[si, k].contiguous(), y)
     return y.transpose(0, 1) + b
+
+
+def _trained(x, supports, w, b, k_hops: int):
+    """The differentiable path: hops on [N, B, C] (the first reads x's
+    transposed view in place), then ``[x | Z_k...] @ w + b`` over [B, N, ·],
+    as the oracle forms it: its output is contiguous, so the ops after it
+    save no reordered copy of their input for the backward."""
+    z0 = x.transpose(0, 1)
+    feats = [x]
+    for s in supports:
+        s = s.contiguous()
+        z = z0
+        for _ in range(k_hops):
+            z = hop(s, z)
+            feats.append(z.transpose(0, 1))
+    return torch.cat(feats, dim=-1) @ w + b

@@ -368,11 +368,14 @@ def build_stgnn_train(arch, cell, mesh, *, placement: str = "replicated",
                ondemand     — baseline DDP: series time-sharded but windows
                sampled globally — the gather from the sharded series
                all-gathers it (the paper's Fig-7 communication wall).
+    use_pallas: the gather and the model's hops through the hand-written
+               kernels; off, as in the JAX package's cells, the plain path
+               (the dry-run traces on meta shards, which no kernel takes).
     """
     mesh = as_spec(mesh)
     if placement not in ("replicated", "partitioned", "ondemand"):
         raise ValueError(f"placement {placement!r}")
-    mcfg = dataclasses.replace(arch.model, remat=True)
+    mcfg = dataclasses.replace(arch.model, remat=True, use_pallas=use_pallas)
     adam = AdamConfig(lr=1e-2)
     gb = cell.global_batch
     n, f = mcfg.num_nodes, mcfg.in_features

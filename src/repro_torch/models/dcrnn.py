@@ -10,9 +10,11 @@ Diffusion convolution follows the dual random-walk form
     DConv(X; theta) = sum_{k=0..K} ( (D_O^{-1} A)^k X W_k^{fwd}
                                    + (D_I^{-1} A^T)^k X W_k^{rev} )
 
-through :func:`repro_torch.kernels.diffusion_conv.diffusion_conv`, so the
-plain hops and the hand-written ``hop_project`` kernel are interchangeable
-here (``use_pallas``, the JAX package's flag name; forward-only, as there).
+through :func:`repro_torch.kernels.diffusion_conv.diffusion_conv`.
+``use_pallas`` (the JAX package's flag name; on by default) runs the hops on
+the hand-written kernels on a CUDA card (``hop_gemm`` forward and backward in
+training, ``hop_project`` without gradients) and on their plain versions on
+the CPU; ``use_pallas=False`` runs the plain oracle.
 
 Parameters are a nested dict of tensors shaped like the JAX package's
 pytree: ``encoder`` and ``decoder`` lists of ``{"ru", "c"}`` cells (each
@@ -46,7 +48,7 @@ class DCRNNConfig:
     max_diffusion_step: int = 2  # K
     input_len: int = 12
     horizon: int = 12
-    use_pallas: bool = False  # route DConv through the hop_project kernel
+    use_pallas: bool = True  # route DConv's hops through the hand-written kernels
     remat: bool = False  # checkpoint each time step (needed at PeMS scale)
 
     @property

@@ -30,9 +30,10 @@ class PGTDCRNNConfig:
     max_diffusion_step: int = 2
     input_len: int = 12
     horizon: int = 12
-    # Run every hop through the hand-written hop_project kernel (the JAX
-    # package's name for its Pallas path).  Forward-only, as there.
-    use_pallas: bool = False
+    # Run every hop through the hand-written kernels on a CUDA card (the JAX
+    # package's name for its Pallas path): hop_gemm forward and backward in
+    # training, hop_project without gradients; their plain versions on the CPU.
+    use_pallas: bool = True
     remat: bool = False  # checkpoint each time step (needed at PeMS scale)
 
     @property

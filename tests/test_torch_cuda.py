@@ -119,6 +119,104 @@ def test_cuda_hop_project_rejects_what_it_cannot_take(cuda):
                     torch.zeros(4, 2, 3, device=cuda))
 
 
+HOP_GEMM_SHAPES = [  # (N, B, C): the train path's B·C 520, 528, 1,024 and 2,112
+    (2716, 8, 65), (2716, 8, 66), (2716, 32, 66), (11160, 8, 128),
+    # ragged N (not a multiple of 4: 4-byte copies of S), odd B·C, one row
+    (203, 8, 65), (203, 32, 66), (203, 3, 5), (1, 1, 1), (1, 4, 66),
+]
+
+
+def _assert_hop_gemm_close(got, s, z, transpose):
+    """hop_gemm's output against the float64 product, held to fp32's own
+    error on the same inputs: at most 4 times the fp32 plain product's
+    largest error, plus 2**-20 of the product's largest magnitude (where
+    fp32 is exact).  A sound 3xTF32 kernel reads under 1 times fp32's error;
+    a kernel whose tensor-core accumulator truncates over K, or one TF32
+    product, reads 30 times it and more (chip_smoke.py's hop_gemm_limit)."""
+    from repro_torch.kernels.diffusion_conv.kernel import hop_gemm_plain
+
+    want = hop_gemm_plain(s.double(), z.double(), transpose=transpose)
+    fp32 = float((hop_gemm_plain(s, z, transpose=transpose).double() - want).abs().max())
+    limit = 4 * fp32 + 2.0 ** -20 * float(want.abs().max())
+    err = float((got.double() - want).abs().max())
+    assert err <= limit, f"max_abs_err {err:.3e} above {limit:.3e} (fp32's {fp32:.3e})"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("n,b,c", HOP_GEMM_SHAPES)
+def test_cuda_hop_gemm_matches_plain(cuda, n, b, c, transpose):
+    """S @ Z and Sᵀ @ Z against the plain product in float64: 3xTF32 keeps
+    fp32's accuracy (_assert_hop_gemm_close, at sums of up to 11,160 terms)."""
+    from repro_torch.kernels.diffusion_conv.kernel import hop_gemm
+
+    rng = np.random.default_rng(n + c)
+    s = torch.as_tensor(_support(rng, n)).to(cuda)
+    z = torch.as_tensor(rng.standard_normal((n, b, c)).astype(np.float32)).to(cuda)
+    before = (hop_gemm.launches_fwd, hop_gemm.launches_bwd)
+    got = hop_gemm(s, z, transpose=transpose)
+    torch.cuda.synchronize()
+    assert (hop_gemm.launches_fwd, hop_gemm.launches_bwd) == (
+        before[0] + (not transpose), before[1] + transpose)
+    _assert_hop_gemm_close(got, s, z, transpose)
+
+
+@pytest.mark.cuda
+def test_cuda_hop_gemm_reads_strided_inputs_and_rejects_what_it_cannot_take(cuda):
+    from repro_torch.kernels.diffusion_conv.kernel import hop_gemm
+
+    rng = np.random.default_rng(5)
+    s = torch.as_tensor(_support(rng, 300)).to(cuda)
+    x = torch.as_tensor(rng.standard_normal((4, 300, 66 * 5)).astype(np.float32)).to(cuda)
+    for z in (x.transpose(0, 1), x[..., 66:132].transpose(0, 1)):  # a view, a slice
+        _assert_hop_gemm_close(hop_gemm(s, z, transpose=True), s, z, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        hop_gemm(s.T, x.transpose(0, 1))
+    with pytest.raises(ValueError, match="float32"):
+        hop_gemm(s.double(), x.transpose(0, 1).double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_grad", [True, False])
+def test_cuda_diffusion_conv_trains_through_hop_gemm(cuda, x_grad):
+    """diffusion_conv(use_pallas=True) with gradients at the PGT-DCRNN
+    width: output, dx, dw and db against the plain oracle; each hop
+    launches forward, and backward only where its input takes a gradient;
+    without gradients hop_project runs and hop_gemm does not."""
+    from repro_torch.kernels.diffusion_conv import diffusion_conv_ref
+    from repro_torch.kernels.diffusion_conv.kernel import hop_gemm
+
+    rng = np.random.default_rng(6)
+    n, b, c, h = 2716, 32, 66, 128
+    sup = tuple(torch.as_tensor(_support(rng, n)).to(cuda) for _ in range(2))
+    x = torch.as_tensor(rng.standard_normal((b, n, c)).astype(np.float32)).to(cuda)
+    w = torch.as_tensor((rng.standard_normal((5 * c, h)) / np.sqrt(5 * c))
+                        .astype(np.float32)).to(cuda)
+    bias = torch.as_tensor(rng.standard_normal(h).astype(np.float32)).to(cuda)
+    g = torch.as_tensor(rng.standard_normal((b, n, h)).astype(np.float32)).to(cuda)
+    results, launches = [], None
+    for use_pallas in (True, False):
+        leaves = [x.clone().requires_grad_(x_grad), w.clone().requires_grad_(True),
+                  bias.clone().requires_grad_(True)]
+        before = (hop_gemm.launches_fwd, hop_gemm.launches_bwd)
+        out = diffusion_conv(leaves[0], sup, *leaves[1:], k_hops=2, use_pallas=use_pallas)
+        grads = torch.autograd.grad(out, [t for t in leaves if t.requires_grad], g)
+        torch.cuda.synchronize()
+        if use_pallas:
+            launches = (hop_gemm.launches_fwd - before[0], hop_gemm.launches_bwd - before[1])
+        results.append([out, *grads])
+    assert launches == (4, 4 if x_grad else 0)
+    for a, e in zip(*results):
+        torch.testing.assert_close(a, e, atol=1e-4, rtol=1e-4)
+    before = (hop_gemm.launches_fwd, hop_gemm.launches_bwd, hop_project.launches)
+    with torch.no_grad():
+        want = diffusion_conv_ref(x, sup, w, bias, k_hops=2)
+        got = diffusion_conv(x, sup, w, bias, k_hops=2, use_pallas=True)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    assert (hop_gemm.launches_fwd, hop_gemm.launches_bwd) == before[:2]
+    assert hop_project.launches == before[2] + 4
+
+
 SCAN_CASES = [  # (B, S, D, a/b dtype, h0 dtype or None, decay)
     (8, 1, 2560, torch.float32, torch.float32, None),    # RG-LRU decode shape
     (8, 1, 2560, torch.float32, torch.bfloat16, None),   # decode, bf16 carry in
@@ -409,10 +507,48 @@ def test_cuda_dcrnn_forward_through_hop_project_matches_plain_hops(cuda):
         got = dcrnn.apply(params, dataclasses.replace(cfg, use_pallas=True), sup, x)
         torch.cuda.synchronize()
         launches = hop_project.launches - before
-        want = dcrnn.apply(params, cfg, sup, x)
+        want = dcrnn.apply(params, dataclasses.replace(cfg, use_pallas=False), sup, x)
     # 24 cell steps x 2 dconvs x 2 supports x K 2, layer 2's hops in 2 tiles
     assert launches == 24 * 2 * 2 * 2 * (1 + 2)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["dcrnn", "pgt_dcrnn"])
+def test_cuda_model_gradients_through_hop_gemm_match_plain_hops(cuda, model):
+    """A training loss's gradients at the models' default (every hop on
+    hop_gemm, forward and backward) against use_pallas=False; the first
+    cell's hops, whose input takes no gradient, launch nothing backward."""
+    import importlib
+
+    from repro_torch.kernels.diffusion_conv.kernel import hop_gemm
+
+    mod = importlib.import_module(f"repro_torch.models.{model}")
+    rng = np.random.default_rng(12)
+    n = 300
+    sup = tuple(torch.as_tensor(_support(rng, n)).to(cuda) for _ in range(2))
+    x = torch.as_tensor(rng.standard_normal((4, 12, n, 2)).astype(np.float32)).to(cuda)
+    y = torch.as_tensor(rng.standard_normal((4, 12, n, 2)).astype(np.float32)).to(cuda)
+    cls = mod.DCRNNConfig if model == "dcrnn" else mod.PGTDCRNNConfig
+    cfg = cls(num_nodes=n)
+    assert cfg.use_pallas
+    params = mod.init(torch.Generator().manual_seed(0), cfg, device=cuda)
+    leaves = [t.requires_grad_(True) for t in tree_leaves(params)]
+    grads = {}
+    for use in (True, False):
+        before = (hop_gemm.launches_fwd, hop_gemm.launches_bwd)
+        loss = mod.loss_fn(params, dataclasses.replace(cfg, use_pallas=use), sup, x, y)
+        grads[use] = (loss, torch.autograd.grad(loss, leaves))
+        torch.cuda.synchronize()
+        if use:
+            fwd, bwd = hop_gemm.launches_fwd - before[0], hop_gemm.launches_bwd - before[1]
+    cells = cfg.layers * (cfg.input_len + cfg.horizon) if model == "dcrnn" else cfg.input_len
+    hops = 2 * 2 * cfg.max_diffusion_step  # two dconvs, two supports
+    # the first cell's gate dconv sees x and a zero state: no backward
+    assert (fwd, bwd) == (cells * hops, cells * hops - hops // 2)
+    torch.testing.assert_close(grads[True][0], grads[False][0], atol=1e-5, rtol=1e-5)
+    for a, e in zip(grads[True][1], grads[False][1]):
+        torch.testing.assert_close(a, e, atol=1e-4, rtol=1e-3)
 
 
 @pytest.mark.cuda

@@ -6,6 +6,7 @@ JAX side runs its oracles and its Pallas kernels in interpret mode.  The
 CUDA kernels themselves are held against those plain versions on a card by
 tests/test_torch_cuda.py.
 """
+import functools
 import shutil
 
 import jax.numpy as jnp
@@ -23,6 +24,7 @@ from repro.kernels.window_gather import window_gather as jax_window_gather
 from repro.kernels.window_gather import window_gather_ref as jax_window_gather_ref
 from repro_torch.kernels.common import kernel_defaults
 from repro_torch.kernels.diffusion_conv import diffusion_conv, diffusion_conv_ref
+from repro_torch.kernels.diffusion_conv import kernel as dc_kernel
 from repro_torch.kernels.diffusion_conv.kernel import hop_project, hop_project_plain
 from repro_torch.kernels.linear_scan import kernel as ls_kernel
 from repro_torch.kernels.linear_scan import linear_scan
@@ -259,19 +261,128 @@ def test_3xtf32_hop_keeps_fp32_tolerance_and_one_tf32_product_does_not():
         assert float(e3.max()) * 100 < float(e1.max())
 
 
-def test_diffusion_conv_kernel_path_refuses_gradients():
+def _spy_hop_gemm(monkeypatch):
+    """Record the direction of every ``hop_gemm`` call the kernel path makes
+    (a CPU tensor takes the plain version and counts no launch)."""
+    calls = []
+    real = dc_kernel.hop_gemm
+
+    def spy(s, z, *, transpose=False):
+        calls.append("bwd" if transpose else "fwd")
+        return real(s, z, transpose=transpose)
+
+    monkeypatch.setattr(dc_kernel, "hop_gemm", spy)
+    return calls
+
+
+def test_diffusion_conv_kernel_path_refuses_gradients(monkeypatch):
+    """Gradients through ``use_pallas=True`` no longer raise: they run each
+    hop through the differentiable ``hop`` (forward and backward) and match
+    the plain oracle, and the no-grad path still runs ``hop_project`` alone."""
     rng = np.random.default_rng(3)
     sup = tuple(torch.as_tensor(s) for s in _supports(rng, 8))
     x = torch.randn(2, 8, 3)
     w = torch.randn(15, 4, requires_grad=True)
     b = torch.zeros(4)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        diffusion_conv(x, sup, w, b, k_hops=2, use_pallas=True)
+    calls = _spy_hop_gemm(monkeypatch)
+    out = diffusion_conv(x, sup, w, b, k_hops=2, use_pallas=True)
+    out.sum().backward()
+    # x takes no gradient, so no hop runs backward
+    assert calls == ["fwd"] * 4
+    dw = w.grad.clone()
+    w.grad = None
+    diffusion_conv_ref(x, sup, w, b, k_hops=2).sum().backward()
+    torch.testing.assert_close(dw, w.grad, atol=1e-5, rtol=1e-5)
+    calls.clear()
     with torch.no_grad():
         out = diffusion_conv(x, sup, w, b, k_hops=2, use_pallas=True)
-    assert out.shape == (2, 8, 4)
-    diffusion_conv(x, sup, w, b, k_hops=2).sum().backward()  # plain path trains
-    assert w.grad is not None and torch.isfinite(w.grad).all()
+    assert out.shape == (2, 8, 4) and calls == []
+
+
+@pytest.mark.parametrize("n_sup", [1, 2])
+@pytest.mark.parametrize("c", [65, 66, 128])
+@pytest.mark.parametrize("x_grad", [True, False])
+def test_diffusion_conv_kernel_path_trains_as_the_oracle(monkeypatch, c, n_sup, x_grad):
+    """``diffusion_conv(use_pallas=True)`` with gradients against
+    ``diffusion_conv_ref``'s autograd: output, dx, dw and db; a hop runs
+    backward only where its input takes a gradient."""
+    rng = np.random.default_rng(c + n_sup)
+    n, bsz, h, k = 24, 3, 16, 2
+    sup = tuple(torch.as_tensor(s) for s in _supports(rng, n)[:n_sup])
+    x = torch.as_tensor(rng.standard_normal((bsz, n, c)).astype(np.float32))
+    w = torch.as_tensor((rng.standard_normal(((1 + n_sup * k) * c, h))
+                         / np.sqrt(c)).astype(np.float32))
+    b = torch.as_tensor(rng.standard_normal(h).astype(np.float32))
+    g = torch.as_tensor(rng.standard_normal((bsz, n, h)).astype(np.float32))
+    calls = _spy_hop_gemm(monkeypatch)
+    got, want = [], []
+    for fn, into in ((functools.partial(diffusion_conv, use_pallas=True), got),
+                     (diffusion_conv_ref, want)):
+        leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+        if not x_grad:
+            leaves[0].requires_grad_(False)
+        out = fn(leaves[0], sup, *leaves[1:], k_hops=k)
+        into.append(out)
+        into.extend(torch.autograd.grad(out, [t for t in leaves if t.requires_grad], g))
+    hops = n_sup * k
+    assert calls == ["fwd"] * hops + (["bwd"] * hops if x_grad else [])
+    assert len(got) == len(want) == (4 if x_grad else 3)
+    for a, e in zip(got, want):
+        torch.testing.assert_close(a, e, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+def test_hop_plain_version_and_its_backward(transpose):
+    """``hop_gemm_plain`` is ``S @ Z`` (``Sᵀ @ Z``) over [N, B, C] in any
+    strides, and ``hop``'s backward is ``Sᵀ @ G`` in float64."""
+    rng = np.random.default_rng(4)
+    n, bsz, c = 19, 3, 5
+    s = torch.as_tensor(_supports(rng, n)[0]).double()
+    x = torch.as_tensor(rng.standard_normal((bsz, n, c))).double()
+    z = x.transpose(0, 1)  # the strided view the first hop reads
+    a = s.T if transpose else s
+    want = torch.einsum("mn,nbc->mbc", a, z)
+    torch.testing.assert_close(dc_kernel.hop_gemm_plain(s, z, transpose=transpose), want)
+    if transpose:
+        return
+    zg = z.detach().clone().requires_grad_(True)
+    assert torch.autograd.gradcheck(lambda t: dc_kernel.hop(s, t), (zg,))
+    with pytest.raises(NotImplementedError, match="supports take no gradient"):
+        dc_kernel.hop(s.clone().requires_grad_(True), zg)
+
+
+@pytest.mark.parametrize("arch", ["dcrnn", "pgt_dcrnn"])
+def test_train_step_runs_its_hops_through_hop_gemm(monkeypatch, arch):
+    """A train step at the models' default ``use_pallas`` runs every hop
+    through ``hop_gemm`` forward: time steps x layers x 2 dconvs x 2
+    supports x K.  All but the first cell's gate hops run backward: that
+    cell's input (the data beside a zero state) takes no gradient.  These
+    are the counts chip_smoke.py's ``train_hops`` holds the card to."""
+    from repro_torch.models import dcrnn, pgt_dcrnn
+    from repro_torch.tree import tree_leaves
+
+    rng = np.random.default_rng(7)
+    n, bsz, k = 6, 2, 2
+    if arch == "dcrnn":
+        mod, cfg = dcrnn, dcrnn.DCRNNConfig(num_nodes=n, hidden=4, layers=2,
+                                            max_diffusion_step=k, input_len=3, horizon=2)
+        steps, layers, y_len = cfg.input_len + cfg.horizon, cfg.layers, cfg.horizon
+    else:
+        mod, cfg = pgt_dcrnn, pgt_dcrnn.PGTDCRNNConfig(num_nodes=n, hidden=4,
+                                                       max_diffusion_step=k, input_len=3,
+                                                       horizon=3)
+        steps, layers, y_len = cfg.input_len, 1, cfg.input_len
+    assert cfg.use_pallas
+    params = mod.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    for t in tree_leaves(params):
+        t.requires_grad_(True)
+    sup = tuple(torch.as_tensor(s) for s in _supports(rng, n))
+    x = torch.as_tensor(rng.standard_normal((bsz, cfg.input_len, n, 2)).astype(np.float32))
+    y = torch.as_tensor(rng.standard_normal((bsz, y_len, n, 2)).astype(np.float32))
+    calls = _spy_hop_gemm(monkeypatch)
+    mod.loss_fn(params, cfg, sup, x, y).backward()
+    per_step = steps * layers * 2 * 2 * k
+    assert (calls.count("fwd"), calls.count("bwd")) == (per_step, per_step - 2 * k)
 
 
 # --------------------------------------------------------------- linear_scan

@@ -53,5 +53,5 @@ def test_layout_mirrors_the_jax_package():
             continue
         assert (jax_pkg / rel).exists(), f"{rel} has no counterpart in src/repro"
     assert sorted(p.name for p in (PORT / "kernels" / "csrc").iterdir()) == \
-        ["flash_attention.cu", "hop_project.cu", "linear_scan.cu", "mma.cuh",
+        ["flash_attention.cu", "hop_gemm.cu", "hop_project.cu", "linear_scan.cu", "mma.cuh",
          "window_gather.cu"]
