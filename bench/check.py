@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from bench import reference as R
-from bench.inputs import TRAFFIC, Inputs, leaves, put, stream_seed
+from bench.inputs import TRAFFIC, Inputs, leaves, put, stream_seed, to_device
 
 #: A leaf whose first reference gradient is under this share of the median
 #: leaf's moves under AdamW by round-off alone; its change is not compared.
@@ -42,14 +42,20 @@ def reference_train(config: dict, traffic: dict, inputs: Inputs, batches, device
     """The reference's first ``len(batches)`` training steps from the
     initial weights: each step's loss and gradient norm before clipping,
     the first clipped gradient and the parameters after the last step, by
-    path, on the host."""
+    path, on the host.
+
+    The configuration's ``reference_windows`` (default: the whole batch)
+    is how many windows one autograd pass takes: each part's loss is
+    weighted by its share of the batch's windows and the parts' gradients
+    summed, which is the batch's gradient of a loss that is a mean over
+    windows, in the memory of one part."""
     model = reference_model(config)
     mm = R.product(precision)
     span, scaler, supports = _prepare(config, inputs, device)
     opt = R.AdamW(lr=traffic["lr"], grad_clip=traffic["grad_clip"])
     start = leaves(inputs.params)
     paths = list(start)
-    params = [start[k].detach().clone() for k in paths]
+    params = [start[k].detach().to(device, copy=True) for k in paths]
     m = [torch.zeros_like(p) for p in params]
     v = [torch.zeros_like(p) for p in params]
     losses, norms, first = [], [], None
@@ -60,18 +66,34 @@ def reference_train(config: dict, traffic: dict, inputs: Inputs, batches, device
         tree: dict = {}
         for k, p in zip(paths, live):
             put(tree, k, p)
-        loss = model.loss(tree, config, supports, x, y, mm)
-        grads = list(torch.autograd.grad(loss, live))
+        loss, grads = _loss_and_grads(model, tree, live, config, supports, x, y, mm)
         norms.append(R.global_norm(grads).item())
         grads = R.clip(grads, opt.grad_clip)
-        losses.append(loss.item())
+        losses.append(loss)
         if first is None:
             first = {k: g.cpu() for k, g in zip(paths, grads)}
         with torch.no_grad():
             params, m, v = R.adamw_step([p.detach() for p in live], grads, m, v, step, opt)
-        del loss, grads, live, tree, x, y, w
+        del grads, live, tree, x, y, w
     return {"losses": losses, "grad_norms": norms, "first_gradient": first,
             "params": {k: p.cpu() for k, p in zip(paths, params)}}
+
+
+def _loss_and_grads(model, tree, live, config, supports, x, y, mm):
+    """The batch's loss (a float) and gradients, ``reference_windows``
+    windows an autograd pass (one pass of the whole batch, weighted by 1,
+    where it is not set)."""
+    bsz = x.shape[0]
+    part = config.get("reference_windows") or bsz
+    loss, grads = 0.0, None
+    for lo in range(0, bsz, part):
+        share = min(part, bsz - lo) / bsz
+        value = share * model.loss(tree, config, supports, x[lo:lo + part],
+                                   y[lo:lo + part], mm)
+        got = torch.autograd.grad(value, live)
+        grads = list(got) if grads is None else [a + b for a, b in zip(grads, got)]
+        loss += value.item()
+    return loss, grads
 
 
 @torch.no_grad()
@@ -81,10 +103,11 @@ def reference_forecast(config: dict, inputs: Inputs, batches, device,
     model = reference_model(config)
     mm = R.product(precision)
     span, scaler, supports = _prepare(config, inputs, device)
+    params = to_device(inputs.params, device)
     out = []
     for ids in batches:
         w = R.windows(inputs.raw, ids, span, scaler, device)
-        out.append(model.forward(inputs.params, config, supports,
+        out.append(model.forward(params, config, supports,
                                  w[:, :config["input_len"]], mm).cpu())
     return out
 

@@ -44,3 +44,17 @@ def hop_bound_s(shapes, peak_flops: float, peak_bytes: float) -> float:
         nbytes = 4 * (n * n + 2 * n * b * c + 2 * n * b * h + c * h)
         total += max(flops / peak_flops, nbytes / peak_bytes)
     return total
+
+
+def hop_gemm_bound_s(shapes, peak_flops: float, peak_bytes: float) -> float:
+    """Least device time of those hops on training's hop kernel, each
+    ``[n, n] @ [n, b*c]`` alone (its projection runs apart): the larger of
+    three TF32 products of its ``2n^2bc`` FLOPs (3xTF32, float32's
+    accuracy) over ``peak_flops`` and its bytes (S and Z read once, the
+    result written once, float32) over ``peak_bytes``."""
+    total = 0.0
+    for n, b, c, _ in shapes:
+        flops = 3 * 2 * n * n * b * c
+        nbytes = 4 * (n * n + 2 * n * b * c)
+        total += max(flops / peak_flops, nbytes / peak_bytes)
+    return total

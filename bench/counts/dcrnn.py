@@ -1,4 +1,7 @@
-"""Model FLOPs and hop shapes of DCRNN (``bench/models/dcrnn.py``)."""
+"""Model FLOPs and hop shapes of DCRNN (``bench/models/dcrnn.py``).
+
+A counts module (``bench/counts/<reference>.py``) exports ``flops``; a
+model with diffusion hops also ``hop_shapes`` and ``backward_hop_shapes``."""
 from __future__ import annotations
 
 from bench.counts.dconv import dconv_flops, hop_shape, project_flops
@@ -36,4 +39,15 @@ def hop_shapes(cfg: dict, batch: int) -> list[tuple]:
     shapes = []
     for c, _ in _cells(cfg):
         shapes += hop_shape(n, batch, c, 2 * h, k) + hop_shape(n, batch, c, h, k)
+    return shapes
+
+
+def backward_hop_shapes(cfg: dict, batch: int) -> list[tuple]:
+    """``(n, b, c, h)`` of every hop a training step runs backward: those
+    whose input needs a gradient (the supports never do)."""
+    n, h, k = cfg["num_nodes"], cfg["hidden"], cfg["max_diffusion_step"]
+    shapes = []
+    for c, grad in _cells(cfg):
+        shapes += (hop_shape(n, batch, c, 2 * h, k) if grad else []) \
+            + hop_shape(n, batch, c, h, k)
     return shapes

@@ -24,3 +24,13 @@ def hop_shapes(cfg: dict, batch: int) -> list[tuple]:
     c = cfg["in_features"] + h
     return (hop_shape(n, batch, c, 2 * h, k) + hop_shape(n, batch, c, h, k)) \
         * cfg["input_len"]
+
+
+def backward_hop_shapes(cfg: dict, batch: int) -> list[tuple]:
+    """``(n, b, c, h)`` of every hop a training step runs backward: those
+    whose input needs a gradient (at t = 0 the first DConv's does not)."""
+    n, h, k = cfg["num_nodes"], cfg["hidden"], cfg["max_diffusion_step"]
+    c = cfg["in_features"] + h
+    return hop_shape(n, batch, c, h, k) + (hop_shape(n, batch, c, 2 * h, k)
+                                           + hop_shape(n, batch, c, h, k)) \
+        * (cfg["input_len"] - 1)

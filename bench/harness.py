@@ -26,7 +26,7 @@ import torch
 
 from bench import check
 from bench.inputs import Inputs, batches, gaussian_adjacency, leaves, make_params, \
-    make_series, sensor_coords
+    make_series, sensor_coords, to_device
 from bench.reference import window_split
 
 BENCH = Path(__file__).resolve().parent
@@ -97,6 +97,7 @@ class Record:
     peak_bytes: int = 0
     resident_bytes: int = 0
     spans: dict = dataclasses.field(default_factory=dict)  # span -> host seconds each
+    counters: dict = dataclasses.field(default_factory=dict)  # program counter -> change
     trace: object = None  # trace.TraceSummary of a traced run
 
     @property
@@ -126,7 +127,9 @@ class Run:
         torch.backends.cudnn.allow_tf32 = cfg["tf32"]
         adjacency = gaussian_adjacency(sensor_coords(cfg["num_nodes"], self.seed), self.device)
         raw = make_series(cfg["entries"], cfg["in_features"], adjacency, self.seed)
-        params = make_params(check.reference_model(cfg).param_specs(cfg), self.seed, self.device)
+        # made on the device, kept on the host: the program places its own copy
+        params = to_device(make_params(check.reference_model(cfg).param_specs(cfg), self.seed,
+                                       self.device), "cpu")
         splits = window_split(cfg["entries"], cfg["input_len"] + cfg["horizon"])
         return Inputs(adjacency.cpu().numpy(), raw, params, splits)
 
@@ -141,7 +144,8 @@ class Run:
         log(f"inputs made in {time.perf_counter() - self.t0:.1f} s since start")
         if self.device.type == "cuda":
             # the peak is the program's: the benchmark's own input making
-            # (graph, series blocks) ends here
+            # (graph, series blocks, weights) ends here, and its copy of the
+            # initial weights stays on the host
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
         self.program = Program(self.config, t, self.inputs, self.device, self.seed)
@@ -174,10 +178,13 @@ class Run:
         the calibration); ``tracer`` adds the benchmark's spans."""
         span = _span if tracer is not None else _no_span
         _sync(self.device)
+        before = self.program.counters()
         if self.traffic["mode"] == "train":
             self._train_window(seconds, span, requests)
         else:
             self._forecast_window(seconds, span, requests)
+        self.record.counters = {k: v - before.get(k, 0)
+                                for k, v in self.program.counters().items()}
 
     def _train_window(self, seconds, span, limit):
         p, rec, log_every = self.program, self.record, self.traffic["log_every"]
@@ -293,6 +300,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device, t0: float) -
         with Tracer() as tracer:
             r.window(seconds, tracer=tracer)
         r.record.trace = tracer.summary(r.record.window_s)
+        log(r.record.trace.describe_spans())
     else:
         r.window(seconds)
     r.release()

@@ -35,7 +35,7 @@ def stream_seed(seed: int, tag: int) -> int:
 class Inputs:
     adjacency: np.ndarray  # [N, N] float32, the Gaussian kernel of road distance
     raw: np.ndarray  # [T, N, F] float32, host
-    params: dict  # the port's parameter tree, on the device
+    params: dict  # the initial weights in the port's tree layout, on the host
     splits: dict  # split name -> window ids
 
 
@@ -99,17 +99,25 @@ def make_series(entries: int, features: int, adjacency: torch.Tensor,
     return host
 
 
+#: A leaf spec's ``fan_in`` for a leaf that starts at one (a norm's gain).
+ONES = "ones"
+
+
 def make_params(specs, seed: int, device) -> dict:
     """The weights of ``specs`` (``(path, shape, fan_in)``) in one draw on
-    the device: normal over sqrt(fan_in); biases (``fan_in`` None) zero."""
+    the device: normal over sqrt(fan_in); biases (``fan_in`` None) zero;
+    gains (``fan_in`` :data:`ONES`) one. Zeros and ones take no draw."""
     gen = torch.Generator(device).manual_seed(stream_seed(seed, WEIGHTS))
-    sizes = [math.prod(shape) for _, shape, fan_in in specs if fan_in is not None]
-    flat = torch.randn((sum(sizes),), generator=gen, device=device)
+    drawn = [spec for spec in specs if spec[2] not in (None, ONES)]
+    flat = torch.randn((sum(math.prod(shape) for _, shape, _ in drawn),),
+                       generator=gen, device=device)
     tree: dict = {}
     offset = 0
     for path, shape, fan_in in specs:
         if fan_in is None:
             leaf = torch.zeros(shape, device=device)
+        elif fan_in == ONES:
+            leaf = torch.ones(shape, device=device)
         else:
             size = math.prod(shape)
             leaf = flat[offset:offset + size].view(shape) / fan_in ** 0.5
@@ -133,6 +141,15 @@ def put(tree, path: tuple, leaf) -> None:
         while len(tree) <= path[-1]:
             tree.append(None)
     tree[path[-1]] = leaf
+
+
+def to_device(tree, device):
+    """A copy of a tree of dicts and lists of tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, device) for v in tree]
+    return tree.detach().to(device, copy=True)
 
 
 def leaves(tree, prefix: tuple = ()) -> dict:

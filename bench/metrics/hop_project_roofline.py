@@ -10,6 +10,8 @@ from bench.peaks import HBM_BYTES_PER_S, TF32_FLOPS
 def read(rec):
     if rec.mode != "forecast" or rec.trace is None:
         return None
+    if not hasattr(rec.cell.counts(), "hop_shapes"):
+        return None  # a model without diffusion hops
     launches, secs = rec.trace.kernel_time("hop_project")
     if not launches or not secs:
         return None

@@ -11,7 +11,7 @@ import importlib
 import numpy as np
 import torch
 
-from bench.inputs import Inputs, leaves
+from bench.inputs import Inputs, leaves, to_device
 
 
 class Program:
@@ -28,7 +28,8 @@ class Program:
 
         adapter = importlib.import_module(f"bench.adapters.{config['adapter']}")
         self._loss, self._forecast = adapter.build(config, traffic, inputs.adjacency, device)
-        self.params = _clone(inputs.params)
+        self._counters = getattr(adapter, "counters", None)
+        self.params = to_device(inputs.params, device)
         self.spec = WindowSpec(horizon=config["horizon"], input_len=config["input_len"])
         self.adam = AdamConfig(lr=traffic["lr"], grad_clip=traffic["grad_clip"]) \
             if traffic["mode"] == "train" else AdamConfig()
@@ -45,6 +46,11 @@ class Program:
     # ----------------------------------------------------------- counters
     def resident_bytes(self) -> int:
         return self.engine.dataset.nbytes_index()
+
+    def counters(self) -> dict:
+        """The adapter's program counters (``counters() -> {name: number}``),
+        or none where it exports no ``counters``."""
+        return dict(self._counters()) if self._counters is not None else {}
 
     # ------------------------------------------------------------ training
     def loss(self, params, x, y) -> torch.Tensor:
@@ -79,11 +85,3 @@ class Program:
         x, _ = self.gather(self.engine.dataset.series, starts,
                            input_len=self.spec.in_len, horizon=self.spec.horizon)
         return self.apply(self.params, x).cpu()
-
-
-def _clone(tree):
-    if isinstance(tree, dict):
-        return {k: _clone(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_clone(v) for v in tree]
-    return tree.detach().clone()

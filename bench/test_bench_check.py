@@ -36,6 +36,9 @@ def test_traced_run_reports_per_layer_metrics(tiny_tree, name):
     assert line["correct"]
     assert "resident_gib" in line["metrics"]
     assert set(line["metrics"]) <= {m["name"] for m in cell.per_layer}
+    # the program's spans are in the trace, so their readers read
+    assert {m["name"] for m in cell.per_layer if m["source"] == "program_span"} \
+        <= set(line["metrics"])
     assert line["device"]["window_s"] > 0 and "breakdown" in line
 
 
@@ -74,3 +77,26 @@ def test_altered_answer_is_caught(tiny_tree, name):
     with faults.altered_answer():
         line = run(cell, SEED, 0.2, False, "cpu", time.perf_counter())
     assert not line["correct"], line["checks"]
+
+
+@pytest.mark.parametrize("name", TRAIN)
+@pytest.mark.parametrize("part", [1, 3])
+def test_sub_batched_reference_gives_the_batch_gradient(tiny_tree, name, part):
+    """The reference taking ``part`` windows an autograd pass (the last
+    part shorter where ``part`` does not divide the batch) gives the whole
+    batch's loss, gradient norm, gradient and step to float32 rounding."""
+    spec, bench = tiny_tree
+    cell = resolve(name, spec, bench)
+    inputs = Run(cell, SEED, "cpu", time.perf_counter()).make_inputs()
+    ids = [inputs.splits["train"][:4]]
+    whole = check.reference_train(cell.config, cell.traffic, inputs, ids, "cpu")
+    parts = check.reference_train({**cell.config, "reference_windows": part}, cell.traffic,
+                                  inputs, ids, "cpu")
+    for got, want in zip(parts["losses"] + parts["grad_norms"],
+                         whole["losses"] + whole["grad_norms"]):
+        assert got == pytest.approx(want, rel=1e-5)
+    for k, want in whole["first_gradient"].items():
+        scale = float(want.abs().max())
+        assert float((parts["first_gradient"][k] - want).abs().max()) <= 1e-5 * scale, k
+    numbers = check.train_numbers(parts, whole, leaves(inputs.params))
+    assert all(v < 1e-5 for v in numbers.values()), numbers

@@ -10,6 +10,7 @@ from pathlib import Path
 
 import pytest
 
+from bench.conftest import shrink
 from bench.harness import BENCH, load_json, resolve
 
 SPEC = load_json(BENCH.parent / "BENCHMARK.json")
@@ -112,3 +113,83 @@ def test_a_model_family_added_as_files_runs(tiny_tree):
     assert all(Path(m).parent.parent == bench for m in got["mods"])
     assert got["line"]["correct"], got["line"]["checks"]
     assert "train_windows_per_s" in got["line"]["metrics"]
+
+
+#: Driven in a process whose ``bench`` package is the copy: a family at an
+#: LM's widths, cut to its CPU size, run correct, traced, with its window's
+#: counters; its control and three faults; its FLOPs against the counter.
+FAMILY_SCRIPT = """
+import json, time
+import torch
+from torch.utils.flop_counter import FlopCounterMode
+from bench import check, faults
+from bench.harness import Run, resolve, run
+from bench.inputs import leaves, make_params
+cell = resolve("node-mlp.train")
+out = {"line": run(cell, 2 ** 33 + 5, 0.2, False, "cpu", time.perf_counter()),
+       "traced": run(cell, 6, 0.2, True, "cpu", time.perf_counter())}
+r = Run(cell, 7, "cpu", time.perf_counter())
+r.setup()
+r.window(0.2)
+out["counters"], out["steps"] = r.record.counters, r.record.steps
+ids = [r.inputs.splits["train"][i * 4:(i + 1) * 4] for i in range(3)]
+ref = lambda p: check.reference_train(cell.config, cell.traffic, r.inputs, ids, "cpu", p)
+out["control"] = check.train_numbers(ref("tf32"), ref("float32"), leaves(r.inputs.params))
+for fault in ("frozen_state", "half_batch", "scaled_gradient"):
+    with getattr(faults, fault)():
+        out[fault] = run(cell, 5, 0.2, False, "cpu", time.perf_counter())["correct"]
+cfg, model = cell.config, check.reference_model(cell.config)
+params = make_params(model.param_specs(cfg), 3, "cpu")
+for p in leaves(params).values():
+    p.requires_grad_(True)
+x = torch.randn(3, cfg["input_len"], cfg["num_nodes"], cfg["in_features"])
+y = torch.randn(3, cfg["horizon"], cfg["num_nodes"], cfg["in_features"])
+with FlopCounterMode(display=False) as counter:
+    model.loss(params, cfg, None, x, y, torch.mm).backward()
+out["flops"] = [counter.get_total_flops(), cell.counts().flops(cfg, 3, train=True)]
+out["gains"] = [float(params["norm"]["g"].min()), float(params["norm"]["g"].max())]
+out["config"] = cfg
+print(json.dumps(out))
+"""
+
+
+def test_a_family_at_lm_widths_added_as_files_runs(tiny_tree):
+    """The example family (``bench/example_family``: a per-node forecaster
+    with no graph operator and no hops, norm gains that start at one, a
+    reference that takes one window an autograd pass, an adapter with
+    counters) added to a copy of the tree as files alone: its configuration
+    states widths the CPU could not hold, and its ``cpu`` size shrinks them."""
+    spec, bench = tiny_tree
+    family = BENCH / "example_family"
+    for f in family.rglob("*.*"):
+        shutil.copy(f, bench / f.relative_to(family))
+    stated = load_json(family / "configs" / "node-mlp.json")
+    assert stated["hidden_size"] >= 16384
+    shrink(bench / "configs" / "node-mlp.json")
+    spec["configs"].append({"name": "node-mlp", "source": "a test",
+                            "file": "bench/configs/node-mlp.json", "reduced": [],
+                            "why": "a test"})
+    spec["workloads"].append({"name": "node-mlp.train", "config": "node-mlp",
+                              "traffic": "train_b32", "chips": 1, "why": "a test"})
+    for m in spec["end_to_end"] + spec["per_layer"]:
+        if "pgt-dcrnn-la.train" in m.get("workloads", []):
+            m["workloads"].append("node-mlp.train")
+    root = bench.parent
+    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(root), str(BENCH.parent / "src")])}
+    out = subprocess.run([sys.executable, "-c", FAMILY_SCRIPT], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["config"]["hidden_size"] == stated["cpu"]["hidden_size"] < 64
+    for line in (got["line"], got["traced"]):
+        assert line["correct"], line["checks"]
+        assert line["attempted"] >= 1 and line["failed"] == 0
+    assert "train_windows_per_s" in got["line"]["metrics"]
+    assert "hop_gemm_roofline" not in got["traced"]["metrics"]
+    assert got["counters"] == {"loss_calls": got["steps"]} and got["steps"] >= 1
+    limits = load_json(bench / "workloads" / "node-mlp.train.json")["limits"]
+    assert any(got["control"][k] > v for k, v in limits.items()), got["control"]
+    assert not any(got[f] for f in ("frozen_state", "half_batch", "scaled_gradient"))
+    assert got["flops"][0] == got["flops"][1]
+    assert got["gains"] == [1.0, 1.0]
