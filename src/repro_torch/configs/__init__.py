@@ -1,5 +1,6 @@
 """Architecture registry of the port: ``get_arch(<id>)``, every arch of the
-JAX package's registry with the same configs."""
+JAX package's registry with the same configs, and the port's own
+(``PORT_ONLY``)."""
 from __future__ import annotations
 
 from repro_torch.configs.base import LM_SHAPES, ArchSpec, ShapeCell
@@ -13,7 +14,8 @@ from repro_torch.configs.musicgen_large import ARCH as MUSICGEN_LARGE
 from repro_torch.configs.qwen15_4b import ARCH as QWEN15_4B
 from repro_torch.configs.recurrentgemma_2b import ARCH as RECURRENTGEMMA_2B
 from repro_torch.configs.rwkv6_1b6 import ARCH as RWKV6_1B6
-from repro_torch.configs.stgnn import DCRNN_PEMS, PGT_DCRNN_PEMS_ALL_LA
+from repro_torch.configs.stgnn import (DCRNN_PEMS, PGT_DCRNN_PEMS_ALL_LA,
+                                      STLLM_DS2LITE_PEMS_ALL_LA)
 
 LM_ARCHS: dict[str, ArchSpec] = {
     a.id: a
@@ -24,7 +26,10 @@ LM_ARCHS: dict[str, ArchSpec] = {
     )
 }
 
-STGNN_ARCHS = {a.id: a for a in (DCRNN_PEMS, PGT_DCRNN_PEMS_ALL_LA)}
+STGNN_ARCHS = {a.id: a for a in (DCRNN_PEMS, PGT_DCRNN_PEMS_ALL_LA,
+                                  STLLM_DS2LITE_PEMS_ALL_LA)}
+#: archs the JAX package's registry does not have
+PORT_ONLY = (STLLM_DS2LITE_PEMS_ALL_LA.id,)
 
 ARCHS: dict[str, ArchSpec] = {**LM_ARCHS, **STGNN_ARCHS}
 
@@ -36,5 +41,5 @@ def get_arch(arch_id: str) -> ArchSpec:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCHS)}") from None
 
 
-__all__ = ["ARCHS", "LM_ARCHS", "STGNN_ARCHS", "get_arch", "ArchSpec",
+__all__ = ["ARCHS", "LM_ARCHS", "STGNN_ARCHS", "PORT_ONLY", "get_arch", "ArchSpec",
            "ShapeCell", "LM_SHAPES"]

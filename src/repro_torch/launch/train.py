@@ -14,7 +14,8 @@ duplicates of a resumed epoch tail dropped); and the feed prefetcher
 
 It runs every arch of the registry on ``--device`` (``cuda`` unless the
 caller asks for ``cpu``; no fallback): the ST-GNN archs (``dcrnn-pems``,
-``pgt-dcrnn-pems-all-la``) on a synthetic traffic series and sensor graph,
+``pgt-dcrnn-pems-all-la``, and ST-LLM on DeepSeek-V2-Lite's block,
+``stllm-ds2lite-pems-all-la``) on a synthetic traffic series and sensor graph,
 and the ten LM archs (``--smoke`` for the reduced same-family config) on a
 synthetic int32 token stream of ``--entries`` tokens, windows of
 ``--seq-len`` tokens through the pipeline's ``lm`` gather (labels are the
@@ -105,7 +106,7 @@ from repro_torch.distributed import (LeaderHistorySink, LeaderTracker,
                                      checkpoint_meta, latest_step, make_transport)
 from repro_torch.distributed.transport import tcp_addresses
 from repro_torch.kernels.autotune import DEFAULT_CACHE_DIR, autotuning
-from repro_torch.models import dcrnn, pgt_dcrnn
+from repro_torch.models import dcrnn, pgt_dcrnn, stllm
 from repro_torch.models.lm import model as lm
 from repro_torch.optim import AdamConfig, warmup_cosine
 from repro_torch.pipeline import ElasticConfig, PipelineConfig, build_pipeline
@@ -133,22 +134,30 @@ def _train_stgnn(arch, args, adam, sched, loop: TrainLoopConfig, sink):
     t0 = time.perf_counter()
     coords = random_sensor_coords(mcfg.num_nodes, seed=args.seed)
     adj = gaussian_adjacency(coords)
-    # C order: the reverse walk comes out of numpy transposed, and the hop
-    # kernel would copy a strided support on every call
-    supports = tuple(torch.as_tensor(np.ascontiguousarray(s)).to(args.device)
-                     for s in transition_matrices(adj))
     series = make_traffic_series(args.entries, mcfg.num_nodes,
                                  mcfg.in_features, seed=args.seed, adjacency=adj)
     print(f"data: {mcfg.num_nodes} nodes, series {series.shape} and graph built "
           f"in {time.perf_counter() - t0:.1f} s")
     spec = WindowSpec(horizon=mcfg.horizon, input_len=mcfg.input_len)
 
-    mod = dcrnn if isinstance(mcfg, dcrnn.DCRNNConfig) else pgt_dcrnn
-    params = mod.init(torch.Generator().manual_seed(args.seed), mcfg,
-                      device=args.device)
+    if isinstance(mcfg, stllm.STLLMConfig):
+        # node tokens in node order: no graph operator
+        params = stllm.init(torch.Generator().manual_seed(args.seed), mcfg,
+                            device=args.device)
 
-    def loss_fn(p, x, y):
-        return mod.loss_fn(p, mcfg, supports, x, y), {}
+        def loss_fn(p, x, y):
+            return stllm.loss_fn(p, mcfg, x, y), {}
+    else:
+        # C order: the reverse walk comes out of numpy transposed, and the
+        # hop kernel would copy a strided support on every call
+        supports = tuple(torch.as_tensor(np.ascontiguousarray(s)).to(args.device)
+                         for s in transition_matrices(adj))
+        mod = dcrnn if isinstance(mcfg, dcrnn.DCRNNConfig) else pgt_dcrnn
+        params = mod.init(torch.Generator().manual_seed(args.seed), mcfg,
+                          device=args.device)
+
+        def loss_fn(p, x, y):
+            return mod.loss_fn(p, mcfg, supports, x, y), {}
 
     pipe = build_pipeline(
         series, spec, loss_fn, params,

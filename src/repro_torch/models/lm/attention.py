@@ -84,21 +84,23 @@ def _on_shards(fn, q, k, v, **kw):
 
 
 def full_attention(q, k, v, *, causal: bool = True, window: int | None = None,
-                   q_offset: int = 0, kv_valid_from: int = 0):
+                   q_offset: int = 0, kv_valid_from: int = 0, scale: float | None = None):
     """q: [B, Sq, H, D], k/v: [B, Skv, Hkv, D] -> [B, Sq, H, D].
 
     ``q_offset``: position of q[0] relative to k[0] (decode / banded chunks).
     ``kv_valid_from``: keys below this index are masked (padding).
+    ``scale``: the softmax scale (None: ``1 / sqrt(D)``, as a division).
     Materialises the [Sq, Skv] score matrix; :func:`blockwise_attention`
     is for long sequences.  DTensor operands run on each rank's shards.
     """
     if is_dtensor(q) or is_dtensor(k):
         return _on_shards(full_attention, q, k, v, causal=causal, window=window,
-                          q_offset=q_offset, kv_valid_from=kv_valid_from)
+                          q_offset=q_offset, kv_valid_from=kv_valid_from, scale=scale)
     b, sq, h, d = q.shape
     n_kv = k.shape[2]
     qg = _grouped(q, n_kv)
-    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) / math.sqrt(d)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
+    scores = scores / math.sqrt(d) if scale is None else scores * scale
     qpos = q_offset + torch.arange(sq, device=q.device)[:, None]
     kpos = torch.arange(k.shape[1], device=q.device)[None, :]
     mask = kpos >= kv_valid_from
@@ -112,44 +114,63 @@ def full_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     return out.reshape(b, sq, h, d)
 
 
-def blockwise_attention(q, k, v, *, causal: bool = True, window: int | None = None,
-                        q_chunk: int = 512, kv_chunk: int = 512):
-    """Flash-style online-softmax attention over [q_chunk, kv_chunk] blocks:
-    the peak live score block is [qc, kc], never [Sq, Skv].  Inference only
-    (the JAX version's ``jax.checkpoint`` is for its backward).  DTensor
-    operands run on each rank's shards."""
-    if is_dtensor(q) or is_dtensor(k):
-        return _on_shards(blockwise_attention, q, k, v, causal=causal, window=window,
-                          q_chunk=q_chunk, kv_chunk=kv_chunk)
+def _chunks(n: int, size: int) -> list[tuple[int, int]]:
+    """``(lo, hi)`` of consecutive chunks of ``size`` covering ``n``, the
+    last one shorter where ``size`` does not divide ``n``."""
+    return [(lo, min(lo + size, n)) for lo in range(0, n, size)]
+
+
+def _block_mask(q_lo, q_hi, k_lo, k_hi, causal, window, dev):
+    """[q_hi - q_lo, k_hi - k_lo] bool: the keys each query of the block sees."""
+    qpos = torch.arange(q_lo, q_hi, device=dev)[:, None]
+    kpos = torch.arange(k_lo, k_hi, device=dev)[None, :]
+    mask = torch.ones((q_hi - q_lo, k_hi - k_lo), dtype=torch.bool, device=dev)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    return mask
+
+
+def _block_seen(q_lo, q_hi, k_lo, k_hi, causal, window) -> bool:
+    """Whether any query of ``[q_lo, q_hi)`` sees any key of ``[k_lo, k_hi)``.
+    A block no query sees adds exactly nothing to the online softmax (its
+    probabilities are 0 and its correction 1), so it may be skipped."""
+    if causal and k_lo > q_hi - 1:
+        return False
+    if window is not None and k_hi - 1 <= q_lo - window:
+        return False
+    return True
+
+
+def _online_softmax(q, k, v, causal, window, q_chunk, kv_chunk, scale, *, skip: bool):
+    """The blockwise forward: ``(out, m, l)``, the output in ``q``'s dtype
+    and each query's running max ``m`` and sum ``l`` ([B, S, Hkv, G],
+    float32).  ``skip``: leave out the blocks no query sees (exact; the
+    kv loop then is no longer alike trip by trip, so it is not marked for
+    rolling)."""
     b, s, h, d = q.shape
     n_kv = k.shape[2]
-    skv = k.shape[1]
-    if s % q_chunk or skv % kv_chunk:
-        raise ValueError(f"blockwise_attention needs q_chunk | S and kv_chunk | "
-                         f"Skv: S={s}, q_chunk={q_chunk}, Skv={skv}, "
-                         f"kv_chunk={kv_chunk}")
-    nq, nk = s // q_chunk, skv // kv_chunk
     g = h // n_kv
-    scale = 1.0 / math.sqrt(d)
+    dv = v.shape[-1]
     dev = q.device
-    outs = []
-    for qi in range(nq):
-        qg = _grouped(q[:, qi * q_chunk:(qi + 1) * q_chunk], n_kv).float()
-        qpos = qi * q_chunk + torch.arange(q_chunk, device=dev)[:, None]
-        m = torch.full((b, q_chunk, n_kv, g), NEG_INF, dtype=torch.float32, device=dev)
-        l = torch.zeros((b, q_chunk, n_kv, g), dtype=torch.float32, device=dev)
-        acc = torch.zeros((b, q_chunk, n_kv, g, d), dtype=torch.float32, device=dev)
-        for ki in trips(nk):
-            k_blk = k[:, ki * kv_chunk:(ki + 1) * kv_chunk]
-            v_blk = v[:, ki * kv_chunk:(ki + 1) * kv_chunk]
+    outs, ms, ls = [], [], []
+    kv = _chunks(k.shape[1], kv_chunk)
+    for q_lo, q_hi in _chunks(s, q_chunk):
+        qc = q_hi - q_lo
+        qg = _grouped(q[:, q_lo:q_hi], n_kv).float()
+        m = torch.full((b, qc, n_kv, g), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((b, qc, n_kv, g), dtype=torch.float32, device=dev)
+        acc = torch.zeros((b, qc, n_kv, g, dv), dtype=torch.float32, device=dev)
+        for ki in range(len(kv)) if skip else trips(len(kv)):
+            k_lo, k_hi = kv[ki]
+            if skip and not _block_seen(q_lo, q_hi, k_lo, k_hi, causal, window):
+                continue
+            k_blk = k[:, k_lo:k_hi]
+            v_blk = v[:, k_lo:k_hi]
             s_blk = torch.einsum("bqhgd,bkhd->bqhgk", qg, k_blk.float()) * scale
-            kpos = ki * kv_chunk + torch.arange(kv_chunk, device=dev)[None, :]
-            mask = torch.ones((q_chunk, kv_chunk), dtype=torch.bool, device=dev)
-            if causal:
-                mask = mask & (kpos <= qpos)
-            if window is not None:
-                mask = mask & (kpos > qpos - window)
-            mask5 = mask[None, :, None, None, :]
+            mask5 = _block_mask(q_lo, q_hi, k_lo, k_hi, causal, window, dev)[
+                None, :, None, None, :]
             s_blk = torch.where(mask5, s_blk, NEG_INF)
             m_new = torch.maximum(m, torch.amax(s_blk, dim=-1))
             # exp(NEG_INF - NEG_INF) would be 1 for fully-masked rows: zero them.
@@ -160,8 +181,84 @@ def blockwise_attention(q, k, v, *, causal: bool = True, window: int | None = No
                 "bqhgk,bkhd->bqhgd", p, v_blk.float())
             m = m_new
         out = acc / torch.clamp(l, min=1e-30)[..., None]
-        outs.append(out.reshape(b, q_chunk, h, d).to(q.dtype))
-    return torch.cat(outs, dim=1)
+        outs.append(out.reshape(b, qc, h, dv).to(q.dtype))
+        ms.append(m)
+        ls.append(l)
+    return torch.cat(outs, dim=1), torch.cat(ms, dim=1), torch.cat(ls, dim=1)
+
+
+class _BlockwiseAttention(torch.autograd.Function):
+    """Blockwise attention whose backward recomputes each query chunk's
+    scores block by block from the saved running max and sum, so the live
+    scores are one ``[q_chunk, kv_chunk]`` block in the backward as in the
+    forward (the JAX version's ``jax.checkpoint`` recomputes the chunk)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_chunk, kv_chunk, scale):
+        out, m, l = _online_softmax(q, k, v, causal, window, q_chunk, kv_chunk, scale,
+                                    skip=True)
+        lse = m + torch.log(torch.clamp(l, min=1e-30))
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window, q_chunk, kv_chunk, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, q_chunk, kv_chunk, scale = ctx.args
+        b, s, h, d = q.shape
+        n_kv = k.shape[2]
+        g = h // n_kv
+        dv = v.shape[-1]
+        dev = q.device
+        dq = torch.zeros((b, s, n_kv, g, d), dtype=torch.float32, device=dev)
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=dev)
+        dvv = torch.zeros(v.shape, dtype=torch.float32, device=dev)
+        do = _grouped(dout, n_kv).float()  # [B, S, Hkv, G, Dv]
+        # D_i = sum_j P_ij dP_ij = dO_i . O_i
+        delta = torch.sum(do * _grouped(out, n_kv).float(), dim=-1)
+        kv = _chunks(k.shape[1], kv_chunk)
+        for q_lo, q_hi in _chunks(s, q_chunk):
+            qg = _grouped(q[:, q_lo:q_hi], n_kv).float()
+            do_c, lse_c, delta_c = do[:, q_lo:q_hi], lse[:, q_lo:q_hi], delta[:, q_lo:q_hi]
+            for k_lo, k_hi in kv:
+                if not _block_seen(q_lo, q_hi, k_lo, k_hi, causal, window):
+                    continue
+                k_blk = k[:, k_lo:k_hi].float()
+                v_blk = v[:, k_lo:k_hi].float()
+                s_blk = torch.einsum("bqhgd,bkhd->bqhgk", qg, k_blk) * scale
+                mask5 = _block_mask(q_lo, q_hi, k_lo, k_hi, causal, window, dev)[
+                    None, :, None, None, :]
+                p = torch.where(mask5, torch.exp(s_blk - lse_c[..., None]), 0.0)
+                dvv[:, k_lo:k_hi] += torch.einsum("bqhgk,bqhgd->bkhd", p, do_c)
+                dp = torch.einsum("bqhgd,bkhd->bqhgk", do_c, v_blk)
+                ds = p * (dp - delta_c[..., None]) * scale
+                dq[:, q_lo:q_hi] += torch.einsum("bqhgk,bkhd->bqhgd", ds, k_blk)
+                dk[:, k_lo:k_hi] += torch.einsum("bqhgk,bqhgd->bkhd", ds, qg)
+        return (dq.reshape(b, s, h, d).to(q.dtype), dk.to(k.dtype), dvv.to(v.dtype),
+                None, None, None, None, None)
+
+
+def blockwise_attention(q, k, v, *, causal: bool = True, window: int | None = None,
+                        q_chunk: int = 512, kv_chunk: int = 512, scale: float | None = None):
+    """Flash-style online-softmax attention over [q_chunk, kv_chunk] blocks:
+    the peak live score block is [qc, kc], never [Sq, Skv].  Any S: where a
+    chunk does not divide it, the last chunk is shorter.  ``v`` may have its
+    own head dim.  ``scale``: the softmax scale (None: ``1 / sqrt(D)``).
+
+    Where a gradient is wanted it runs as :class:`_BlockwiseAttention`,
+    which skips the blocks no query sees and recomputes each query chunk's
+    scores in its backward; without one, every block is visited with the
+    kv loop marked for rolling (``loops.trips``).  DTensor operands run on
+    each rank's shards."""
+    if is_dtensor(q) or is_dtensor(k):
+        return _on_shards(blockwise_attention, q, k, v, causal=causal, window=window,
+                          q_chunk=q_chunk, kv_chunk=kv_chunk, scale=scale)
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _BlockwiseAttention.apply(q, k, v, causal, window, q_chunk, kv_chunk, scale)
+    return _online_softmax(q, k, v, causal, window, q_chunk, kv_chunk, scale,
+                           skip=False)[0]
 
 
 def banded_attention(q, k, v, *, window: int, q_chunk: int = 512):

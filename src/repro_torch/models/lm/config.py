@@ -22,6 +22,29 @@ class MoEConfig:
     capacity_factor: float = 1.25
     router_noise: float = 0.0
     aux_loss_coef: float = 0.01
+    # DeepSeek-V2's routing; the defaults are the JAX package's
+    norm_topk_prob: bool = True  # renormalise the top-k weights to sum to 1
+    routed_scaling_factor: float = 1.0  # times the top-k weights
+    seq_aux: bool = False  # balance loss per sequence (else Switch-style, all tokens)
+    dropless: bool = False  # every assignment computed (else capacity_factor drops)
+
+
+@dataclasses.dataclass(frozen=True)
+class YaRNConfig:
+    """YaRN rope scaling as DeepSeek-V2 publishes it (``rope_scaling``,
+    ``type: yarn``): frequencies blended between extrapolated and
+    ``factor``-interpolated by a linear ramp over the pair indices that
+    ``beta_fast`` and ``beta_slow`` rotations bound at
+    ``original_max_position_embeddings``; the softmax scale gains
+    ``mscale(factor, mscale_all_dim) ** 2``, and cos/sin the ratio
+    ``mscale(factor, mscale) / mscale(factor, mscale_all_dim)``."""
+
+    factor: float
+    original_max_position_embeddings: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +70,7 @@ class LMConfig:
     window: int | None = None  # swa / recurrentgemma local-attn window
     pos: Literal["rope", "learned", "none"] = "rope"
     rope_theta: float = 10_000.0
+    rope_scaling: YaRNConfig | None = None  # None: plain rope
     max_seq_len: int = 8192  # learned-pos table size / cache default
     mlp: Literal["swiglu", "geglu", "gelu", "relu_sq"] = "swiglu"
     moe: MoEConfig | None = None

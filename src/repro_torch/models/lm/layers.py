@@ -40,22 +40,58 @@ def linear(p, x):
 
 
 # ----------------------------------------------------------------------- RoPE
-def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+def yarn_mscale(factor: float, mscale: float = 1.0) -> float:
+    """DeepSeek-V2's ``yarn_get_mscale``: ``0.1 mscale ln(factor) + 1``."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def _yarn_pair_index(rotations: float, head_dim: int, theta: float, max_pos: int) -> float:
+    """The pair index whose wavelength turns ``rotations`` times over
+    ``max_pos`` positions (``yarn_find_correction_dim``)."""
+    return (head_dim * math.log(max_pos / (rotations * 2 * math.pi))) / (2 * math.log(theta))
+
+
+def rope_freqs(head_dim: int, theta: float, device=None, scaling=None) -> torch.Tensor:
+    """The ``head_dim / 2`` rope frequencies, float32.  ``scaling`` (a
+    ``YaRNConfig``): DeepSeek-V2's YaRN blend, ``theta``-extrapolated below
+    the ramp's low pair index and ``factor``-interpolated above its high
+    one, with a linear ramp between."""
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
-    return 1.0 / (theta ** exps)
+    if scaling is None:
+        return 1.0 / (theta ** exps)
+    extra = 1.0 / (theta ** exps)
+    inter = 1.0 / (scaling.factor * theta ** exps)
+    orig = scaling.original_max_position_embeddings
+    low = max(math.floor(_yarn_pair_index(scaling.beta_fast, head_dim, theta, orig)), 0)
+    high = min(math.ceil(_yarn_pair_index(scaling.beta_slow, head_dim, theta, orig)),
+               head_dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = torch.clamp((torch.arange(head_dim // 2, dtype=torch.float32, device=device) - low)
+                       / (high - low), 0, 1)
+    extrapolated = 1.0 - ramp
+    return inter * (1 - extrapolated) + extra * extrapolated
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               scaling=None) -> torch.Tensor:
     """x: [B, S, H, D], positions: [B, S] (absolute token positions).
 
     The head splits into halves (not interleaved pairs), as in the JAX
-    package.
+    package.  ``scaling``: YaRN (:func:`rope_freqs`), whose cos and sin
+    take ``mscale(mscale) / mscale(mscale_all_dim)`` (1 where the two are
+    equal, as in DeepSeek-V2).
     """
     d = x.shape[-1]
-    freqs = rope_freqs(d, theta, x.device)  # [D/2]
+    freqs = rope_freqs(d, theta, x.device, scaling)  # [D/2]
     angles = positions[..., None].float() * freqs  # [B, S, D/2]
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
+    if scaling is not None:
+        gain = (yarn_mscale(scaling.factor, scaling.mscale)
+                / yarn_mscale(scaling.factor, scaling.mscale_all_dim))
+        if gain != 1.0:
+            cos, sin = cos * gain, sin * gain
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)

@@ -22,7 +22,8 @@ from repro_torch.models.lm.attention import (NEG_INF, blockwise_attention, full_
                                               paged_tables, paged_view, paged_write,
                                               write_token, zero_pad)
 from repro_torch.models.lm.config import LMConfig
-from repro_torch.models.lm.layers import Draw, apply_rope, init_linear, linear, rms_norm
+from repro_torch.models.lm.layers import (Draw, apply_rope, init_linear, linear, rms_norm,
+                                          yarn_mscale)
 
 
 def init_mla(draw: Draw, cfg: LMConfig, dtype=torch.float32, lead: tuple = ()):
@@ -47,7 +48,7 @@ def _project_q(p, cfg: LMConfig, x, positions):
     b, s, _ = x.shape
     q = linear(p["wq"], x).reshape(b, s, cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
     qn, qr = torch.split(q, [m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
-    return qn, apply_rope(qr, positions, cfg.rope_theta)
+    return qn, apply_rope(qr, positions, cfg.rope_theta, cfg.rope_scaling)
 
 
 def _project_ckv(p, cfg: LMConfig, x, positions):
@@ -55,8 +56,21 @@ def _project_ckv(p, cfg: LMConfig, x, positions):
     c_kv, k_pe = torch.split(linear(p["wdkv"], x),
                              [m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
     c_kv = rms_norm(c_kv, p["ckv_norm"].to(x.dtype), cfg.norm_eps)
-    k_pe = apply_rope(k_pe[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    k_pe = apply_rope(k_pe[:, :, None, :], positions, cfg.rope_theta,
+                      cfg.rope_scaling)[:, :, 0]
     return c_kv, k_pe  # [B,S,r], [B,S,dr]
+
+
+def softmax_scale(cfg: LMConfig) -> float | None:
+    """MLA's softmax scale: ``(nope + rope) ** -0.5``, times YaRN's
+    ``mscale(factor, mscale_all_dim) ** 2`` (DeepSeek-V2's attention) where
+    the config has YaRN with ``mscale_all_dim``; None for the plain
+    ``1 / sqrt(head dim)`` the attention functions take by default."""
+    y = cfg.rope_scaling
+    if y is None or not y.mscale_all_dim:
+        return None
+    m = yarn_mscale(y.factor, y.mscale_all_dim)
+    return (cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim) ** -0.5 * m * m
 
 
 def mla_attention(p, cfg: LMConfig, x, positions, *, blockwise: bool = False):
@@ -74,7 +88,7 @@ def mla_attention(p, cfg: LMConfig, x, positions, *, blockwise: bool = False):
     # v's head dim may differ from the qk head dim: pad v for the shared path
     vp = zero_pad(v, -1, after=q.shape[-1] - m.v_head_dim)
     fn = blockwise_attention if blockwise else full_attention
-    out = fn(q, k, vp, causal=True)
+    out = fn(q, k, vp, causal=True, scale=softmax_scale(cfg))
     y = linear(p["wo"], out[..., :m.v_head_dim].reshape(b, s, -1))
     return y, (c_kv, k_pe)
 
@@ -114,7 +128,7 @@ def mla_decode(p, cfg: LMConfig, x1, ckv_cache, kpe_cache, lengths, *, paged=Non
     w_uk = wukv[..., :m.qk_nope_head_dim]  # [r, H, dn]
     w_uv = wukv[..., m.qk_nope_head_dim:]  # [r, H, dv]
     q_lat = torch.einsum("bqhd,rhd->bqhr", qn, w_uk.to(x1.dtype))  # [B,1,H,r]
-    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    scale = softmax_scale(cfg) or 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
     scores = (torch.einsum("bqhr,bkr->bhqk", q_lat.float(), ckv.float())
               + torch.einsum("bqhd,bkd->bhqk", qr.float(), kpe.float())) * scale
     kpos = torch.arange(ckv.shape[1], device=x1.device)[None, None, None, :]

@@ -61,6 +61,7 @@ from repro_torch.models.lm.layers import (apply_rope, init_linear, init_mlp,
                                           linear, mlp, rms_norm)
 from repro_torch.models.lm.mla import init_mla, mla_attention, mla_decode
 from repro_torch.models.lm.moe import init_moe, moe_ffn
+from repro_torch.tracing import spanned
 from repro_torch.tree import tree_map
 
 BLOCKWISE_THRESHOLD = 2048  # switch to flash-style attention above this seq len
@@ -251,8 +252,8 @@ def _attn_mixer(p, cfg: LMConfig, spec: LayerSpec, x, positions, *, mode,
     k = _constrain(linear(a["wk"], x), shardings, "kvh").reshape(b, s, cfg.n_kv_heads, hd)
     v = _constrain(linear(a["wv"], x), shardings, "kvh").reshape(b, s, cfg.n_kv_heads, hd)
     if cfg.pos == "rope":
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
     if mode == "prefill":
         # compute-path q/k/v stay batch-sharded (the S-sharded cache write
         # must not pull its layout onto them)
@@ -339,6 +340,10 @@ def _layer_apply(p, cfg: LMConfig, spec: LayerSpec, x, positions, *, mode,
     elif spec.mixer == "rwkv":
         out, new_cache = rwkv6.time_mix(p["rwkv"], cfg, h,
                                         cache=None if mode == "train" else cache["tm"])
+    elif mode == "train":
+        out = spanned("attention", lambda h: _attn_mixer(
+            p, cfg, spec, h, positions, mode=mode, shardings=shardings)[0], h)
+        new_cache = None
     else:
         out, new_cache = _attn_mixer(p, cfg, spec, h, positions, mode=mode,
                                      cache=cache, lengths=lengths, paged=paged,

@@ -217,7 +217,9 @@ def make_train_step(
     loss_fn(params, batch) -> (loss, metrics).  ``batch`` is a tensor whose
     leading per-step batch dim is divisible by ``microbatches``.
     Returns step(state, batch) -> (state, metrics); metrics stay on the
-    device (reading them synchronises).  ``group``: a process group whose
+    device (reading them synchronises).  The returned state holds new
+    parameters and the given state's AdamW moments, updated in place
+    (``apply_updates(in_place=True)``).  ``group``: a process group whose
     ranks train one model on their own batches; the step averages the
     gradients and the loss over it (:func:`all_reduce_mean`) before AdamW.
     None: one process, no collective.
@@ -259,7 +261,8 @@ def make_train_step(
             loss, grads = all_reduce_mean(loss, grads, group)
         lr = schedule(opt_state["step"])
         with span("optimizer"):
-            new_params, new_opt, gnorm = apply_updates(params, grads, opt_state, adam, lr)
+            new_params, new_opt, gnorm = apply_updates(params, grads, opt_state, adam, lr,
+                                                       in_place=True)
         out_metrics = {"loss": loss, "lr": lr, **metrics}
         if gnorm is not None:
             out_metrics["grad_norm"] = gnorm

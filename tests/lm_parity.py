@@ -58,12 +58,31 @@ def jax_paths(tree) -> list[str]:
             for path, _ in jax.tree_util.tree_flatten_with_path(tree)[0]]
 
 
+#: The port's own config fields (DeepSeek-V2's routing and YaRN, which the
+#: JAX package lacks), with the defaults that keep the JAX package's
+#: behaviour.
+PORT_ONLY_FIELDS = {"rope_scaling": None, "norm_topk_prob": True,
+                    "routed_scaling_factor": 1.0, "seq_aux": False, "dropless": False}
+
+
+def as_jax_dict(cfg) -> dict:
+    """``dataclasses.asdict`` of a port ``LMConfig`` or ``MoEConfig``
+    without the port's own fields, each asserted at its default: the dict
+    the JAX package's config of the same arch gives."""
+    out = dataclasses.asdict(cfg)
+    for node in (out, out.get("moe") or {}):
+        for name, default in PORT_ONLY_FIELDS.items():
+            if name in node:
+                assert node.pop(name) == default, name
+    return out
+
+
 def bridge(arch_id: str, seed: int = 0, **overrides):
     """(jcfg, tcfg, jparams, tparams): the arch's smoke config in both
     packages (equal as dicts) and the JAX draws bridged into the port."""
     jcfg = dataclasses.replace(jax_get_arch(arch_id).smoke_config(), **overrides)
     tcfg = dataclasses.replace(get_arch(arch_id).smoke_config(), **overrides)
-    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+    assert dataclasses.asdict(jcfg) == as_jax_dict(tcfg)
     jparams = jax.jit(jm.init, static_argnums=1)(jax.random.PRNGKey(seed), jcfg)
     return jcfg, tcfg, jparams, params_from_jax(jax.device_get(jparams), device="cpu")
 

@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from lm_parity import check_forward_loss_and_grads, check_prefill_and_decode
+from lm_parity import as_jax_dict, check_forward_loss_and_grads, check_prefill_and_decode
 from repro.configs import ARCHS as JAX_ARCHS
 from repro.configs import LM_ARCHS as JAX_LM_ARCHS
 from repro.configs import get_arch as jax_get_arch
@@ -31,7 +31,7 @@ from repro.models.lm import attention as jattn
 from repro.models.lm import layers as jlayers
 from repro.models.lm import model as jm
 from repro.models.lm import rglru as jrglru
-from repro_torch.configs import ARCHS, LM_ARCHS, get_arch
+from repro_torch.configs import ARCHS, LM_ARCHS, PORT_ONLY, get_arch
 from repro_torch.interop import params_from_jax
 from repro_torch.models.lm import attention as tattn
 from repro_torch.models.lm import layers as tlayers
@@ -65,9 +65,14 @@ def rg():
 
 # ---------------------------------------------------------- config, params
 def test_registry_matches_the_jax_arch_and_names_unported_ones():
-    """All twelve archs of the JAX registry resolve, with equal configs,
-    smoke configs, cells, skips and parameter counts; an unknown id raises."""
-    assert sorted(ARCHS) == sorted(JAX_ARCHS) and len(ARCHS) == 12
+    """All twelve archs of the JAX registry resolve, with equal configs
+    (the port's own config fields at the defaults that keep the JAX
+    package's behaviour), smoke configs, cells, skips and parameter counts;
+    beside them the port's own arch (ST-LLM on DeepSeek-V2-Lite's block),
+    and no other; an unknown id raises."""
+    assert sorted(set(ARCHS) - set(PORT_ONLY)) == sorted(JAX_ARCHS) and len(JAX_ARCHS) == 12
+    assert PORT_ONLY == ("stllm-ds2lite-pems-all-la",) and not set(PORT_ONLY) & set(JAX_ARCHS)
+    assert set(PORT_ONLY) <= set(ARCHS) and len(ARCHS) == 13
     assert sorted(LM_ARCHS) == sorted(JAX_LM_ARCHS)
     for arch_id in JAX_ARCHS:
         ours, theirs = get_arch(arch_id), jax_get_arch(arch_id)
@@ -78,8 +83,8 @@ def test_registry_matches_the_jax_arch_and_names_unported_ones():
         if theirs.lm is None:
             assert ours.lm is None
             continue
-        assert dataclasses.asdict(ours.lm) == dataclasses.asdict(theirs.lm)
-        assert (dataclasses.asdict(ours.smoke_config())
+        assert as_jax_dict(ours.lm) == dataclasses.asdict(theirs.lm)
+        assert (as_jax_dict(ours.smoke_config())
                 == dataclasses.asdict(theirs.smoke_config()))
         assert ours.lm.param_count() == theirs.lm.param_count()
         assert ours.lm.active_param_count() == theirs.lm.active_param_count()

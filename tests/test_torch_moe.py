@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from lm_parity import bridge, check_forward_loss_and_grads, check_init_tree, \
+from lm_parity import as_jax_dict, bridge, check_forward_loss_and_grads, check_init_tree, \
     check_prefill_and_decode, close, t_
 from repro.models.lm import moe as jmoe
 from repro.models.lm.config import MoEConfig as JMoEConfig
@@ -138,7 +138,7 @@ def test_init_moe_keeps_the_router_float32():
     moe = MoEConfig(n_experts=4, top_k=2, n_shared=1, d_expert=8)
     p = tmoe.init_moe(lambda shape: torch.randn(shape), D, moe, 32, "swiglu",
                       dtype=torch.bfloat16, lead=(3,))
-    jp = jmoe.init_moe(jax.random.PRNGKey(0), D, JMoEConfig(**dataclasses.asdict(moe)),
+    jp = jmoe.init_moe(jax.random.PRNGKey(0), D, JMoEConfig(**as_jax_dict(moe)),
                        32, "swiglu", dtype=jnp.bfloat16)
     jp = jax.tree.map(lambda a: jnp.broadcast_to(a, (3,) + a.shape), jp)
     for t, j in zip(tree_leaves(p), jax.tree.leaves(jp)):

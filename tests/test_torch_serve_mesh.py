@@ -31,6 +31,7 @@ import torch
 import torch.multiprocessing as mp
 
 import serve_mesh_ranks as ranks
+from lm_parity import as_jax_dict
 from repro.configs import get_arch as jax_get_arch
 from repro.serve import ServeConfig as JaxServeConfig
 from repro.serve import Server as JaxServer
@@ -50,7 +51,7 @@ def _weights(arch: str):
     over = {"use_pallas_scan": True} if arch == "recurrentgemma-2b" else {}
     jcfg = dataclasses.replace(jax_get_arch(arch).smoke_config(), **over)
     tcfg = dataclasses.replace(get_arch(arch).smoke_config(), **over)
-    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+    assert dataclasses.asdict(jcfg) == as_jax_dict(tcfg)
     tparams = tm.init(torch.Generator().manual_seed(0), tcfg, device="cpu")
     return jcfg, tree_map(lambda t: t.numpy(), tparams)
 

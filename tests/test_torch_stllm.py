@@ -4,8 +4,9 @@ LM ``backbone`` it runs its node tokens through: the parameter tree,
 the MAE loss and every gradient leaf against ``jax.value_and_grad`` — where
 ``tod``, ``backbone.embed`` and ``backbone.lm_head`` get exactly zero — the
 train step on a loss that leaves leaves unused, a 3-step ``build_pipeline``
-trajectory with its checkpoint, and the blockwise-attention graphs both
-packages run or refuse.  Bridged parameters and seeded numpy inputs, float32
+trajectory with its checkpoint, and the blockwise-attention graphs: both
+packages where 512 divides N; where it does not, the JAX package refuses
+and the port's ragged last chunk equals full attention, with gradients.  Bridged parameters and seeded numpy inputs, float32
 on the CPU, at test_torch_dcrnn.py's tolerance (atol 1e-5, rtol 1e-4)."""
 import dataclasses
 
@@ -36,7 +37,7 @@ from repro_torch.optim import AdamConfig
 from repro_torch.pipeline import PipelineConfig, build_pipeline
 from repro_torch.train import TrainLoopConfig
 from repro_torch.train.loop import init_train_state, make_train_step
-from repro_torch.tree import tree_leaves, tree_paths
+from repro_torch.tree import tree_leaves, tree_paths, tree_unflatten
 
 ATOL, RTOL = 1e-5, 1e-4
 NODES, HORIZON, BATCH, ENTRIES, LR = 16, 4, 8, 300, 1e-3
@@ -243,11 +244,42 @@ def test_blockwise_graph_matches_jax():
     _close(got.numpy(), want)
 
 
-def test_graph_blockwise_attention_cannot_chunk_is_refused_by_both():
-    """At 2,600 nodes 512 does not divide N: the JAX package asserts and the
-    port raises, with no padding on either side."""
+def _blockwise_equals_full(tcfg, tparams, x, monkeypatch):
+    """The port's forward and every gradient leaf at ``tcfg``'s node count,
+    blockwise (the last chunk ragged where 512 does not divide N), against
+    the same model with its attention forced to the full ``[N, N]`` one."""
+    tx = torch.as_tensor(x)
+    y = torch.as_tensor(np.random.default_rng(4).standard_normal(x.shape).astype(np.float32))
+
+    def run():
+        leaves = [t.clone().requires_grad_(True) for t in tree_leaves(tparams)]
+        params = tree_unflatten(tparams, leaves)
+        pred = tm.apply(params, tcfg, tx)
+        grads = torch.autograd.grad(torch.mean(torch.abs(pred - y[..., :1])), leaves,
+                                    allow_unused=True, materialize_grads=True)
+        return pred.detach(), grads
+
+    blockwise = run()
+    monkeypatch.setattr(tlm, "BLOCKWISE_THRESHOLD", 10 ** 9)
+    full = run()
+    _close(blockwise[0].numpy(), full[0].numpy())
+    for path, a, b in zip(tree_paths(tparams), blockwise[1], full[1]):
+        _close(a.numpy(), b.numpy(), path)
+
+
+def test_graph_blockwise_attention_cannot_chunk_is_refused_by_both(monkeypatch):
+    """At 2,600 nodes 512 does not divide N: the JAX package asserts, while
+    the port runs its blockwise attention with a ragged last chunk and
+    equals full attention, forward and every gradient."""
     jcfg, tcfg, jparams, x = _wide(2_600)
     with pytest.raises(AssertionError):
         jm.apply(jparams, jcfg, jnp.asarray(x))
-    with torch.no_grad(), pytest.raises(ValueError, match="q_chunk"):
-        tm.apply(params_from_jax(jparams, device="cpu"), tcfg, torch.as_tensor(x))
+    _blockwise_equals_full(tcfg, params_from_jax(jparams, device="cpu"), x, monkeypatch)
+
+
+def test_blockwise_attention_trains_at_pems_all_la_nodes(monkeypatch):
+    """At PeMS-All-LA's 2,716 nodes (5 chunks of 512 and one of 156) the
+    port's blockwise attention equals full attention, forward and every
+    gradient."""
+    _, tcfg, jparams, x = _wide(2_716)
+    _blockwise_equals_full(tcfg, params_from_jax(jparams, device="cpu"), x, monkeypatch)
