@@ -23,9 +23,9 @@ class KernelDefaults:
                         kernel takes 64 only).  64 x 64 keeps the f32 tiles
                         of head_dim 256 in 148,992 bytes of shared memory.
 
-    ``hop_project``'s tile (64 node rows per block of 128 threads) is fixed
-    in its source, as is ``hop_gemm``'s (128 x 176, over at most one
-    block an SM).  ``linear_scan`` and ``window_gather`` take their launch
+    ``hop_project``'s tile (128 node rows by the batch elements that fit 136
+    columns, 72 for a batch that fits 72) and ``hop_gemm``'s (128 x 176)
+    are set in their sources, each over at most one block an SM.  ``linear_scan`` and ``window_gather`` take their launch
     shapes from the call's shape and the card's SM count
     (:func:`~repro_torch.kernels.linear_scan.kernel.scan_threads`,
     :func:`~repro_torch.kernels.window_gather.kernel.launch_shape`).

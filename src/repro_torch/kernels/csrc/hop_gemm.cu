@@ -71,6 +71,7 @@
 #include <cstdint>
 
 #include "mma.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -88,9 +89,6 @@ static_assert(kBBytes % 1024 == 0 && kStageBytes % 1024 == 0,
               "128-byte swizzled tiles start on 1024-byte boundaries");
 constexpr int kFullCount = 129;  // 128 loader threads' cp.async arrivals + TMA's expect
 constexpr int kEmptyCount = 8;   // one arrival per consumer warp
-// A spin on an mbarrier that outlasts this many clocks (about 10 s) is a
-// fault: trap rather than hang the card.
-constexpr long long kSpinLimit = 20000000000LL;
 
 // Float offset of element (m, k) of a stage's S tile [128 rows of the
 // product x 32 of K].  Forward (A = S): row m's 32 floats are one 128-byte
@@ -104,70 +102,6 @@ __device__ __forceinline__ int a_offset(int m, int k) {
   if (TRANS)
     return (m >> 5) * 1024 + k * 32 + ((((m & 31) >> 2) ^ ((k & 3) << 1)) << 2) + (m & 3);
   return m * 32 + (((k >> 2) ^ (m & 7)) << 2) + (k & 3);
-}
-
-__device__ __forceinline__ void wait_parity(uint32_t bar, uint32_t parity) {
-  const long long t0 = clock64();
-  uint32_t done = 0;
-  while (true) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (clock64() - t0 > kSpinLimit) __trap();
-  }
-}
-
-__device__ __forceinline__ void mbarrier_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-
-// One arrival on `bar` once every cp.async this thread issued so far has
-// landed (counted in the barrier's expected arrivals).
-__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(bar) : "memory");
-}
-
-// A [box] tile of the 3-D tensor `map` at coordinates (c0, c1, c2), innermost
-// first, to shared memory at `dst`; its bytes are counted on `bar`.
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int c0,
-                                            int c1, int c2, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4}], [%5];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-         "r"(bar)
-      : "memory");
-}
-
-// The `wgmma` descriptor of a K-major tile at shared address `addr`, 128-byte
-// swizzled: rows of 128 bytes, 8-row groups 1024 bytes apart (SBO); the
-// leading offset is unused in this mode.  Adding 2 steps 32 bytes (8 fp32)
-// along K.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of the accumulator across
-// the asynchronous products.
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&r)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
 // d = a · B, or d += a · B where `accumulate`, over one k8 step: m64n176k8,
@@ -291,13 +225,13 @@ hop_gemm_kernel(const __grid_constant__ CUtensorMap b_map, const float* __restri
       for (int kb = 0; kb < kblocks; ++kb) {
         const int k0 = kb * kBK;
         const uint32_t full = bars + 8 * stage, dst = base + stage * kStageBytes;
-        wait_parity(bars + 8 * (kStages + stage), phase ^ 1);  // consumers done with it
+        mma::wait_parity(bars + 8 * (kStages + stage), phase ^ 1);  // consumers done with it
         load_a<TRANS>(dst, s, n, m0, k0, tid, vec != 0);
-        cp_async_arrive(full);
+        mma::cp_async_arrive(full);
         if (tid == 0) {
           mma::mbarrier_expect(full, 2 * kBBytes);
-          tma_load_3d(dst + kABytes, &b_map, k0, n0, 0, full);
-          tma_load_3d(dst + kABytes + kBBytes, &b_map, k0, n0, 1, full);
+          tma::load_3d(dst + kABytes, &b_map, k0, n0, 0, full);
+          tma::load_3d(dst + kABytes + kBBytes, &b_map, k0, n0, 1, full);
         }
         if (++stage == kStages) { stage = 0; phase ^= 1; }
       }
@@ -322,35 +256,35 @@ hop_gemm_kernel(const __grid_constant__ CUtensorMap b_map, const float* __restri
 #pragma unroll
     for (int i = 0; i < kBN / 2; ++i) acc[i] = part[i] = 0.f;
     uint32_t ahi[2][4], alo[2][4];
-    wait_parity(bars + 8 * stage, phase);
+    mma::wait_parity(bars + 8 * stage, phase);
     load_frag<TRANS>(smem + stage * (kStageBytes / 4), r, t, 0, ahi[0], alo[0]);
     for (int kb = 0; kb < kblocks; ++kb) {
-      const uint64_t dhi = desc_sw128(base + stage * kStageBytes + kABytes);
+      const uint64_t dhi = mma::desc_sw128(base + stage * kStageBytes + kABytes);
       const uint64_t dlo = dhi + (kBBytes >> 4);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        wgmma_fence();
+        mma::wgmma_fence();
         wgmma_n176(part, alo[kk & 1], dhi + 2 * kk, kk > 0);  // the small terms first
         wgmma_n176(part, ahi[kk & 1], dlo + 2 * kk, 1);
         wgmma_n176(part, ahi[kk & 1], dhi + 2 * kk, 1);
-        wgmma_commit();
+        mma::wgmma_commit();
         if (kk < 3) {
-          wgmma_wait<1>();  // every product but these three is done
+          mma::wgmma_wait<1>();  // every product but these three is done
           load_frag<TRANS>(smem + stage * (kStageBytes / 4), r, t, kk + 1,
                            ahi[(kk + 1) & 1], alo[(kk + 1) & 1]);
         }
       }
-      wgmma_wait<0>();
-      fence_regs(part);
-      if (lane == 0) mbarrier_arrive(bars + 8 * (kStages + stage));  // the stage is free
+      mma::wgmma_wait<0>();
+      mma::fence_regs(part);
+      if (lane == 0) mma::mbarrier_arrive(bars + 8 * (kStages + stage));  // the stage is free
       if (++stage == kStages) { stage = 0; phase ^= 1; }
       if (kb + 1 < kblocks) {
-        wait_parity(bars + 8 * stage, phase);
+        mma::wait_parity(bars + 8 * stage, phase);
         load_frag<TRANS>(smem + stage * (kStageBytes / 4), r, t, 0, ahi[0], alo[0]);
       }
 #pragma unroll
       for (int i = 0; i < kBN / 2; ++i) acc[i] += part[i];
-      fence_regs(part);
+      mma::fence_regs(part);
     }
 
     // Epilogue: d[4j + e] is row r + 8·(e / 2), column 8j + 2t + e % 2.
@@ -409,30 +343,6 @@ hop_gemm_split_b(const float* __restrict__ z, float* __restrict__ planes, int k_
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled, through the runtime (no link to
-// libcuda), or null.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// Launch errors of the C entry that are not CUDA's own (CUDA's run below 1,000).
-constexpr int kErrNoEncoder = 10001;
-constexpr int kErrTensorMap = 10002;
-
 constexpr int kMaxDevices = 64;
 
 template <bool TRANS>
@@ -466,7 +376,7 @@ cudaError_t launch(const CUtensorMap& map, const float* s, float* out, int n, in
 // bsz, c] contiguous; planes: scratch of 2 · bsz·c · kp floats, kp = n
 // rounded up to 4, 16-byte aligned.  All fp32 on the current device,
 // launched on `stream` over at most `sms` blocks.  Returns 0, a
-// cudaError_t, or one of the kErr codes above (see hop_gemm_error).
+// cudaError_t, or one of tma.cuh's kErr codes (see hop_gemm_error).
 extern "C" int hop_gemm_f32(const float* s, const float* z, float* out, float* planes, int n,
                             int bsz, int c, long long sk, long long sb, long long sc,
                             int transpose, int sms, void* stream) {
@@ -475,8 +385,8 @@ extern "C" int hop_gemm_f32(const float* s, const float* z, float* out, float* p
   if (cols_ll > (1 << 30) || sms <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const int cols = static_cast<int>(cols_ll), kp = (n + 3) / 4 * 4;
   const auto st = static_cast<cudaStream_t>(stream);
-  const EncodeTiled encode = encode_tiled();
-  if (!encode) return kErrNoEncoder;
+  const tma::EncodeTiled encode = tma::encode_tiled();
+  if (!encode) return tma::kErrNoEncoder;
 
   const dim3 split_grid((n + 31) / 32, (cols + 31) / 32);
   if (split_grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
@@ -494,7 +404,7 @@ extern "C" int hop_gemm_f32(const float* s, const float* z, float* out, float* p
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return kErrTensorMap;
+    return tma::kErrTensorMap;
 
   const bool vec = n % 4 == 0 && reinterpret_cast<std::uintptr_t>(s) % 16 == 0;
   err = transpose ? launch<true>(map, s, out, n, cols, sms, vec, st)
@@ -503,7 +413,7 @@ extern "C" int hop_gemm_f32(const float* s, const float* z, float* out, float* p
 }
 
 extern "C" const char* hop_gemm_error(int code) {
-  if (code == kErrNoEncoder) return "cuTensorMapEncodeTiled not found in the CUDA driver";
-  if (code == kErrTensorMap) return "cuTensorMapEncodeTiled refused the B planes' map";
+  if (code == tma::kErrNoEncoder) return "cuTensorMapEncodeTiled not found in the CUDA driver";
+  if (code == tma::kErrTensorMap) return "cuTensorMapEncodeTiled refused the B planes' map";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -1,11 +1,13 @@
 // Thin inline-PTX wrappers that the kernels share (built for sm_90a): the
-// warp-level tensor-core instructions of flash_attention.cu and
-// hop_project.cu (sm_80 and later), `cp.async` (those two and
-// linear_scan.cu), and the mbarriers and bulk copies of window_gather.cu
-// (sm_90).
+// warp-level tensor-core instructions of flash_attention.cu (sm_80 and
+// later), `cp.async` (flash_attention.cu, linear_scan.cu and the hop
+// kernels), the mbarriers and bulk copies of window_gather.cu (sm_90), and
+// the waits, fences and `wgmma` descriptors of the warp-specialised rings of
+// hop_gemm.cu and hop_project.cu.
 //
 // Fragment layouts of one warp (lane = 4·g + t, g = lane / 4, t = lane % 4),
-// as the PTX ISA defines them for mma.sync:
+// as the PTX ISA defines them for mma.sync (a warp's tf32 A fragment is also
+// what `wgmma` takes from registers for its 16 rows of a warpgroup's 64):
 //   m16n8k16 bf16  A 16x16 (row): a0 (g, 2t..2t+1), a1 (g+8, 2t..2t+1),
 //                                 a2 (g, 2t+8..2t+9), a3 (g+8, 2t+8..2t+9)
 //                  B 16x8 (col):  b0 (k 2t..2t+1, n g), b1 (k 2t+8..2t+9, n g)
@@ -37,17 +39,6 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a · b, tf32 operands (f32 bit patterns with the low 13 bits zero),
-// f32 accumulator.
-__device__ __forceinline__ void mma_tf32_1688(float (&d)[4], const uint32_t (&a)[4],
-                                              const uint32_t (&b)[2]) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // Four 8x8 b16 matrices from shared memory: lanes 8i..8i+7 give the 16-byte
@@ -156,6 +147,78 @@ __device__ __forceinline__ void bulk_wait_read() {
 // Until every bulk store group of this thread has completed.
 __device__ __forceinline__ void bulk_wait_all() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// ------------------------------------------- warp-specialised wgmma rings
+// A spin on an mbarrier that outlasts this many clocks (about 10 s) is a
+// fault: trap rather than hang the card.
+constexpr long long kSpinLimit = 20000000000LL;
+
+// Until the barrier's phase of the given parity has completed, or trap.
+__device__ __forceinline__ void wait_parity(uint32_t bar, uint32_t parity) {
+  const long long t0 = clock64();
+  uint32_t done = 0;
+  while (true) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (clock64() - t0 > kSpinLimit) __trap();
+  }
+}
+
+__device__ __forceinline__ void mbarrier_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+// One arrival on `bar` once every cp.async this thread issued so far has
+// landed (counted in the barrier's expected arrivals).
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(bar) : "memory");
+}
+
+// This thread's writes to shared memory, visible to the async proxy (the
+// operands `wgmma` reads there) once a barrier orders them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barriers (0 is __syncthreads): `count` threads, a multiple of 32.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
+// The `wgmma` descriptor of a K-major tile at shared address `addr`, 128-byte
+// swizzled: rows of 128 bytes, 8-row groups 1024 bytes apart (SBO); the
+// leading offset is unused in this mode.  Adding 2 steps 32 bytes (8 fp32)
+// along K.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of the accumulator across
+// the asynchronous products.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&r)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
 // Round to TF32 (10 mantissa bits), to nearest with ties away from zero:

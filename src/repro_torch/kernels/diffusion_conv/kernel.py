@@ -9,13 +9,14 @@ with its projection,
     Y  += Z_k @ W_k              W_k [C, H], Y [N, B, H]
 
 :func:`hop_project_plain` is its plain PyTorch version: a CPU tensor takes
-it, a CUDA tensor launches the kernel or raises.  The kernel runs on the
-tensor cores in 3xTF32 (three TF32 products per fp32 product, fp32
-accumulation), which keeps fp32 accuracy.  It has no backward.
+it, a CUDA tensor launches the kernel or raises.  The kernel runs both
+products on the tensor cores through ``wgmma`` in 3xTF32 (three TF32
+products per fp32 product, fp32 accumulation), which keeps fp32 accuracy,
+and splits Z inside the kernel: it allocates nothing.  It has no backward.
 
-The kernel's register tile covers at most ``MAX_C`` feature columns.  The
-hop is separable in C (``Z_k[..., tile] = S @ Z_{k-1}[..., tile]`` and
-``Y += sum over tiles of Z_k[..., tile] @ W_k[tile, :]``), so
+The kernel's tiles hold whole batch elements of at most ``MAX_C`` feature
+columns.  The hop is separable in C (``Z_k[..., tile] = S @ Z_{k-1}[...,
+tile]`` and ``Y += sum over tiles of Z_k[..., tile] @ W_k[tile, :]``), so
 :func:`hop_project` runs a wider C as equal column tiles of at most
 ``MAX_C``, each tile's Y feeding the next tile's launch; every tile reads S
 again.  ``hop_project.launches`` counts the kernel's launches, one a tile.
@@ -45,8 +46,8 @@ import torch
 from repro_torch.kernels.build import library
 from repro_torch.kernels.common import kernel_defaults, sm_count
 
-#: Widest feature dim C the kernel's register tile covers; wider C runs as
-#: column tiles.
+#: Widest feature dim C of a batch element in the kernel's tile; wider C runs
+#: as column tiles.
 MAX_C = 128
 
 
@@ -60,7 +61,7 @@ def _entry():
     lib = library("hop_project")
     fn = lib.hop_project_f32
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.hop_project_error.argtypes = [ctypes.c_int]
         lib.hop_project_error.restype = ctypes.c_char_p
@@ -96,7 +97,8 @@ def hop_project(s, z, w, y):
 
 def _hop_tile(s, z, w, y):
     """One launch over at most ``MAX_C`` columns (the plain version on a
-    CPU tensor)."""
+    CPU tensor).  Every shape takes the one kernel, which sizes its own tiles
+    from (N, B, C): a persistent block on each of the card's SMs."""
     kd = kernel_defaults(z.device)
     if not kd.kernel:
         return hop_project_plain(s, z, w, y)
@@ -123,7 +125,7 @@ def _hop_tile(s, z, w, y):
     lib, fn = _entry()
     with torch.cuda.device(z.device):
         err = fn(s.data_ptr(), z.data_ptr(), w.data_ptr(), y.data_ptr(),
-                 z_out.data_ptr(), y_out.data_ptr(), n, b, c, h,
+                 z_out.data_ptr(), y_out.data_ptr(), n, b, c, h, sm_count(z.device),
                  torch.cuda.current_stream(z.device).cuda_stream)
     if err:
         raise RuntimeError(f"hop_project launch failed: "

@@ -85,6 +85,11 @@ HOP_SHAPES = [  # (N, B, C, H)
     (2716, 8, 130, 64), (2716, 8, 192, 128), (129, 3, 130, 5),
     # the full PeMS graph (dcrnn-pems): N 11,160, B 8
     (11160, 8, 128, 128), (11160, 8, 65, 64),
+    # the wgmma tiling's edges: N neither a multiple of 128 nor of 4 (S by
+    # cp.async), B = 1 (the narrow tile), 17 column tiles with the last half
+    # full, NB·C = 134 of 136 columns, H past 128 and not a multiple of 64
+    (2715, 5, 66, 128), (2716, 1, 66, 128), (203, 1, 65, 64), (300, 33, 66, 64),
+    (130, 3, 67, 128), (40, 9, 17, 200),
 ]
 
 
@@ -103,6 +108,37 @@ def test_cuda_hop_project_matches_plain(cuda, n, b, c, h):
     want = hop_project_plain(s, z, w, y)
     for a, e in zip(got, want):
         torch.testing.assert_close(a, e, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_hop_project_keeps_fp32_accuracy_against_float64(cuda):
+    """At the forecast cell's shape [2716, 32, 66 -> 128], Z_next and Y_next
+    against the float64 plain version, held to hop_gemm's rule
+    (_assert_hop_gemm_close, chip_smoke.py's hop_gemm_limit): at most 4 times
+    the fp32 plain version's largest error plus 2**-20 of the largest
+    magnitude.  The one-pass TF32 hop reads far past it."""
+    n, b, c, h = 2716, 32, 66, 128
+    rng = np.random.default_rng(31)
+    s = torch.as_tensor(_support(rng, n)).to(cuda)
+    z, w, y = (torch.as_tensor(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+               for shape in ((n, b, c), (c, h), (n, b, h)))
+    w = w / c ** 0.5
+    got = hop_project(s, z, w, y)
+    torch.cuda.synchronize()
+    want = hop_project_plain(s.double(), z.double(), w.double(), y.double())
+    fp32 = hop_project_plain(s, z, w, y)
+    for g, e, f in zip(got, want, fp32):
+        limit = 4 * float((f.double() - e).abs().max()) + 2.0 ** -20 * float(e.abs().max())
+        err = float((g.double() - e).abs().max())
+        assert err <= limit, f"max_abs_err {err:.3e} above {limit:.3e}"
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = torch.einsum("mn,nbc->mbc", s, z)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    f_err = float((fp32[0].double() - want[0]).abs().max())
+    limit = 4 * f_err + 2.0 ** -20 * float(want[0].abs().max())
+    assert float((tf32.double() - want[0]).abs().max()) > limit
 
 
 @pytest.mark.cuda

@@ -236,8 +236,8 @@ def test_tf32_rounding_is_to_nearest_ties_away():
 def test_3xtf32_hop_keeps_fp32_tolerance_and_one_tf32_product_does_not():
     """The hop kernel's precision design, emulated: at N 512, B 4, C 66,
     H 128 on a random-walk support, the 3xTF32 hop and projection stay
-    within atol = rtol = 1e-4 of float64 (chip_smoke.py's HOP_ATOL/RTOL);
-    one TF32 product per fp32 product does not."""
+    within atol = rtol = 1e-4 of float64; one TF32 product per fp32 product
+    does not."""
     rng = np.random.default_rng(11)
     n, b, c, h = 512, 4, 66, 128
     s = torch.as_tensor(_supports(rng, n)[0])

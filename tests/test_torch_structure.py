@@ -54,4 +54,4 @@ def test_layout_mirrors_the_jax_package():
         assert (jax_pkg / rel).exists(), f"{rel} has no counterpart in src/repro"
     assert sorted(p.name for p in (PORT / "kernels" / "csrc").iterdir()) == \
         ["flash_attention.cu", "hop_gemm.cu", "hop_project.cu", "linear_scan.cu", "mma.cuh",
-         "window_gather.cu"]
+         "tma.cuh", "window_gather.cu"]
